@@ -19,15 +19,16 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 
 def build_shared(name: str, sources: Sequence[str], cmd: Sequence[str],
-                 timeout: float = 600.0) -> str:
+                 timeout: float = 600.0, deps: Sequence[str] = ()) -> str:
     """Compile `sources` (paths relative to the package) into
     BUILD_DIR/lib<name>-<hash>.so and return its path. `cmd` is the compiler
     command without sources and output; it must produce a shared library
-    with `-o <out> <sources...>` appended. Raises RuntimeError with the
+    with `-o <out> <sources...>` appended. `deps` are headers the sources
+    include: hashed with them, not compiled. Raises RuntimeError with the
     compiler's output if the build fails."""
     paths = [os.path.join(PKG_DIR, s) for s in sources]
     h = hashlib.sha256(" ".join(cmd).encode())
-    for p in paths:
+    for p in paths + [os.path.join(PKG_DIR, s) for s in deps]:
         with open(p, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")

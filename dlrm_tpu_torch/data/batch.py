@@ -17,7 +17,7 @@ import torch
 
 class StreamArrays(NamedTuple):
     """Device copies of the host-built U-layout work plan
-    (dlrm_tpu_torch/ops/stream_plan.py) consumed by the streamed update."""
+    (dlrm_tpu_torch/ops/stream_plan.py) consumed by the streamed kernels."""
 
     rows_u: torch.Tensor  # [Uw, 8, 128] int32
     vals_u: torch.Tensor  # [Uw, 8, 128] int32
@@ -26,6 +26,9 @@ class StreamArrays(NamedTuple):
     item_block: torch.Tensor  # [M] int32
     item_row0: torch.Tensor  # [M] int32
     item_u: torch.Tensor  # [M] int32
+    # host-side: the item list is the touched-only one (no cover items), so
+    # it serves K2 but not the streamed forward, which must write every slot
+    touched_only: bool = False
 
 
 class Batch(NamedTuple):

@@ -38,7 +38,9 @@ class HostBatch:
         (first plan.hot[t] columns) has weight 1.0: the builder then skips
         wts_u and the train step derives it on the device from
         rows_u != -1. update_touched_only=True drops the hit-free blocks'
-        items, so the in-place K2 update touches only blocks with hits."""
+        items, so the in-place K2 update touches only blocks with hits; such
+        a batch is refused by the streamed forward (fwd_impl="stream"),
+        which needs the full cover list."""
         work = build_stream_work(
             plan, self.idx, None if unit_weights else self.wt,
             skip_wts=unit_weights,
@@ -100,6 +102,7 @@ class HostBatch:
                 item_block=put(w.item_block),
                 item_row0=put(w.item_row0),
                 item_u=put(w.item_u),
+                touched_only=w.touched_only,
             )
         return Batch(
             dense=put(self.dense),

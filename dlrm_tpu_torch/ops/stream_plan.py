@@ -201,6 +201,9 @@ class StreamWork:
     item_row0: np.ndarray  # [M] int32
     item_u: np.ndarray  # [M] int32, multiple of 128 (CHUNK-aligned)
     num_real_items: int
+    # True once touched_update_items dropped the cover items: the list then
+    # serves the in-place update (K2) only, never the streamed forward (K3)
+    touched_only: bool = False
 
 
 def build_stream_work(
@@ -386,7 +389,7 @@ def touched_update_items(
     out_b[:n], out_r[:n], out_u[:n] = ib, ir, iu
     return dataclasses.replace(
         work, item_block=out_b, item_row0=out_r, item_u=out_u,
-        num_real_items=n,
+        num_real_items=n, touched_only=True,
     )
 
 

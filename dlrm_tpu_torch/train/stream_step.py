@@ -1,14 +1,17 @@
 """Train and eval steps over the streamed U-layout update (the port of
-dlrm_tpu/train/stream_step.py with fwd_impl="gather", grad_impl="gather").
+dlrm_tpu/train/stream_step.py).
 
 One train step:
-  1. pooled = grouped_embedding_bag(table, batch) outside autograd, then
-     marked requires_grad: the autograd region is (dense params, pooled),
-     never the table;
+  1. pooled [B, T, d] outside autograd, then marked requires_grad: the
+     autograd region is (dense params, pooled), never the table.
+     fwd_impl="gather": grouped_embedding_bag (one F.embedding_bag);
+     fwd_impl="stream": K3 stream_rows + K4 window_pool, fp32 [T, B, d]
+     transposed (needs the full item list, not the touched-only one);
   2. loss = masked BCE of the dense tower on pooled; one backward gives the
      dense grads and dly = d(loss)/d(pooled);
   3. the dense params take the regular optimizer (optim/optimizers.py);
-  4. the table takes gather_grads (per-hit G_u) + K2 stream_update.
+  4. the table takes the per-hit grads G_u (grad_impl="onehot": K1
+     window_grads; "gather": gather_grads) and K2 stream_update.
 
 Everything updates IN PLACE, where the JAX step donates its buffers
 (stream_step.py:336) and K2 aliases table and accumulator: the step returns
@@ -32,7 +35,12 @@ from dlrm_tpu_torch.data.batch import Batch
 from dlrm_tpu_torch.device import resolve_device
 from dlrm_tpu_torch.models.dlrm import DLRMModel, masked_mean, per_example_loss
 from dlrm_tpu_torch.ops.embedding import grouped_embedding_bag
-from dlrm_tpu_torch.ops.stream_kernels import gather_grads, stream_update
+from dlrm_tpu_torch.ops.stream_kernels import (
+    gather_grads,
+    stream_embedding_fwd,
+    stream_update,
+    window_grads,
+)
 from dlrm_tpu_torch.ops.stream_plan import (
     SENTINEL_ROW,
     StreamPlan,
@@ -45,9 +53,6 @@ from dlrm_tpu_torch.optim.optimizers import (
     tree_leaves,
     tree_map,
 )
-
-_NOT_PORTED = "not ported yet (ROADMAP queue A item {})"
-
 
 def plan_for_model(model: DLRMModel, batch_size: int,
                    block_rows: int = 2048, hot_sizes=None) -> StreamPlan:
@@ -131,23 +136,20 @@ def make_stream_train_step(
     optimizer: str,
     plan: StreamPlan,
     *,
-    fwd_impl: str = "gather",
-    grad_impl: str = "gather",
-    mm_dtype=torch.float32,  # K2: round each G row to this dtype first
+    fwd_impl: str = "gather",  # gather (F.embedding_bag) | stream (K3+K4)
+    grad_impl: str = "onehot",  # onehot (K1) | gather (gather_grads)
+    mm_dtype=torch.float32,  # K1-K4: round operands to this dtype first
     stochastic_round: bool = False,  # SR the bf16 table writes
     eps: float = None,  # Adagrad epsilon (None -> torch default 1e-10)
     device="cuda",
 ):
     """train_step(params, opt_state, batch, lr) -> (params, opt_state, loss,
-    probs), updating params and opt_state in place (see the module doc).
-    Only fwd_impl="gather" and grad_impl="gather" are ported; the streamed
-    forward (K3+K4) and one-hot grads (K1) raise NotImplementedError."""
-    if fwd_impl != "gather":
-        raise NotImplementedError(
-            f"fwd_impl={fwd_impl!r} (K3+K4) is " + _NOT_PORTED.format(9))
-    if grad_impl != "gather":
-        raise NotImplementedError(
-            f"grad_impl={grad_impl!r} (K1) is " + _NOT_PORTED.format(9))
+    probs), updating params and opt_state in place (see the module doc)."""
+    if fwd_impl not in ("gather", "stream"):
+        raise ValueError(f"fwd_impl must be gather|stream, got {fwd_impl!r}")
+    if grad_impl not in ("onehot", "gather"):
+        raise ValueError(
+            f"grad_impl must be onehot|gather, got {grad_impl!r}")
     if optimizer not in ("sgd", "rwsadagrad", "adagrad"):
         raise ValueError(f"optimizer {optimizer!r} not supported")
     model._check_supported()
@@ -171,9 +173,21 @@ def make_stream_train_step(
         b = batch.dense.shape[0]
 
         with torch.no_grad():
-            pooled = grouped_embedding_bag(
-                emb, offsets, batch.idx, batch.wt, plan.hot, batch=b
-            )
+            if fwd_impl == "stream":
+                if sw.touched_only:
+                    raise ValueError(
+                        "fwd_impl='stream' needs the full item list (K3 "
+                        "must write every slot); build the batch without "
+                        "update_touched_only")
+                pooled = stream_embedding_fwd(
+                    plan, emb, sw.rows_u, sw.vals_u, wts_u, sw.w2t,
+                    sw.item_block, sw.item_row0, sw.item_u,
+                    mm_dtype=mm_dtype,
+                ).transpose(0, 1)
+            else:
+                pooled = grouped_embedding_bag(
+                    emb, offsets, batch.idx, batch.wt, plan.hot, batch=b
+                )
         pooled.requires_grad_()
         leaves = tree_map(lambda p: p.detach().requires_grad_(), dense)
         with torch.enable_grad():
@@ -195,7 +209,12 @@ def make_stream_train_step(
             dense_accum = (None if accum is None else
                            {k: v for k, v in accum.items() if k != "emb"})
             apply_updates(optimizer, dense, grads, dense_accum, lr, eps=eps)
-            g_u = gather_grads(dly.transpose(0, 1), sw.vals_u, wts_u, sw.w2t)
+            dly_t = dly.transpose(0, 1)  # [T, B, d] view, no copy
+            if grad_impl == "onehot":
+                g_u = window_grads(dly_t, sw.vals_u, wts_u, sw.w2t,
+                                   mm_dtype=mm_dtype)
+            else:
+                g_u = gather_grads(dly_t, sw.vals_u, wts_u, sw.w2t)
             stream_update(
                 optimizer, plan, emb,
                 None if accum is None else accum["emb"]["stacked"],

@@ -5,8 +5,9 @@ as `python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py`
 (tests/conftest.py configures JAX). chip_smoke.py runs the same comparison
 at larger shapes.
 
-The kernel and the plain version add each row's hits in the same order,
-so they must agree to the bit."""
+K1, K2 and K3 compute the same products, sums and copies in the same order
+as their plain versions, so they must agree to the bit. K4 adds with atomics
+in a run-dependent order: rtol 1e-5 / atol 1e-6."""
 
 import numpy as np
 import pytest
@@ -70,3 +71,73 @@ def test_stream_update_kernel_matches_plain(dev, optimizer, table_dtype, sr,
     assert torch.equal(t_k.view(torch.uint8), t_p.view(torch.uint8))
     if acc is not None:
         assert torch.equal(a_k, a_p)
+
+
+def _work(dev, touched=False, seed=0):
+    rng = np.random.default_rng(seed)
+    plan = make_stream_plan(TABLES, D, B, HOT, block_rows=1024)
+    hb = ragged_multihot_batch(rng, 4, TABLES, HOT, B)
+    hb.wt[hb.wt != 0] = rng.uniform(0.5, 1.5, int((hb.wt != 0).sum()))
+    return plan, hb.with_stream_work(plan, update_touched_only=touched
+                                     ).to_device(dev).stream
+
+
+def _wts(sw, weights):
+    return sw.wts_u if weights == "random" else (sw.rows_u != -1).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dly_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weights", ["unit", "random"])
+def test_window_grads_kernel_matches_plain(dev, dly_dtype, mm, weights):
+    plan, sw = _work(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    # the [B, T, d] cotangent's transposed view, as the train step passes it
+    dly = torch.randn((B, len(TABLES), D), generator=gen, device=dev).to(
+        getattr(torch, dly_dtype)).transpose(0, 1)
+    args = (dly, sw.vals_u, _wts(sw, weights), sw.w2t)
+    launches = tk.LAUNCHES["window_grads"]
+    got = tk.window_grads(*args, mm_dtype=getattr(torch, mm))
+    want = tk.window_grads_plain(*args, mm_dtype=getattr(torch, mm))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["window_grads"] == launches + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+def test_stream_rows_kernel_matches_plain(dev, table_dtype, mm):
+    plan, sw = _work(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    table = torch.randn((plan.padded_rows, D), generator=gen,
+                        device=dev).to(getattr(torch, table_dtype))
+    args = (plan, table, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u)
+    launches = tk.LAUNCHES["stream_rows"]
+    got = tk.stream_rows(*args, mm_dtype=getattr(torch, mm))
+    want = tk.stream_rows_plain(*args, mm_dtype=getattr(torch, mm))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["stream_rows"] == launches + 1
+    assert not bool(torch.isnan(want).any())  # every slot written
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weights", ["unit", "random"])
+def test_window_pool_kernel_matches_plain(dev, mm, weights):
+    plan, sw = _work(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    r_u = torch.randn((plan.u_total, D), generator=gen, device=dev)
+    r_u[(sw.rows_u == -1).reshape(-1)] = 0  # as K3 writes the sentinels
+    args = (plan, r_u, sw.vals_u, _wts(sw, weights), sw.w2t)
+    launches = tk.LAUNCHES["window_pool"]
+    got = tk.window_pool(*args, mm_dtype=getattr(torch, mm))
+    want = tk.window_pool_plain(*args, mm_dtype=getattr(torch, mm))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["window_pool"] == launches + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

@@ -1,10 +1,15 @@
-"""The port's gather_grads and K2 stream_update against dlrm_tpu's (Pallas
+"""The port's gather_grads and its K1-K4 (window_grads, stream_update,
+stream_rows, window_pool, stream_embedding_fwd) against dlrm_tpu's (Pallas
 in interpret mode), on the same numpy-built U-layout inputs. On the CPU the
-port's stream_update takes its plain version; the CUDA kernel is held
-against the plain version by tests/test_torch_cuda_kernels.py (skipped
+port's wrappers take their plain versions; the CUDA kernels are held
+against the plain versions by tests/test_torch_cuda_kernels.py (skipped
 without a card) and by chip_smoke.py.
 
-Tolerances: fp32 tables/accumulators rtol 1e-5 / atol 1e-6 (the JAX kernel
+K1 and K3 compute the same products and copies as JAX: K1 within rtol 1e-6
+/ atol 1e-6, K3 bit-exact. K4 and the streamed forward sum in another order
+(index_add_ against one-hot matmuls): rtol 1e-5 / atol 1e-5.
+
+K2 tolerances: fp32 tables/accumulators rtol 1e-5 / atol 1e-6 (the JAX kernel
 sums each block's grads with one-hot matmuls, the port per row in slot
 order); bf16 tables at most 1 bf16 ulp apart at the scale of the update's
 operands, both sides rounding to nearest (JAX interpret mode has no
@@ -309,3 +314,169 @@ def test_sr_bits_match_the_kernel_hash():
         key = hash32(r ^ hash32(12345))
         for c in range(4):
             assert int(got[i, c]) == hash32(key ^ c) >> 16
+
+
+# ------------------------------------------------------- K1, K3 and K4
+def _t(a):
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def _unit_wts(work):
+    return (work.rows_u != tsp.SENTINEL_ROW).astype(np.float32)
+
+
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weights", ["unit", "random"])
+def test_window_grads_matches_jax(mm, weights):
+    _, plan, idx, wt, dly, _ = _setup()
+    work = _work(plan, idx, wt, False)
+    wts = work.wts_u if weights == "random" else _unit_wts(work)
+    want = np.asarray(jk.window_grads(
+        jnp.asarray(dly), jnp.asarray(work.vals_u), jnp.asarray(wts),
+        jnp.asarray(work.w2t), mm_dtype=getattr(jnp, mm), interpret=True))
+    # the [B, T, d] cotangent's transposed view, as the train step passes it
+    dly_btd = _t(dly.transpose(1, 0, 2))
+    got = tk.window_grads(dly_btd.transpose(0, 1), _t(work.vals_u), _t(wts),
+                          _t(work.w2t), mm_dtype=getattr(torch, mm))
+    assert got.dtype == torch.float32 and got.shape == (plan.u_total, D)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    sent = work.rows_u.reshape(-1) == tsp.SENTINEL_ROW
+    assert (got.numpy()[sent] == 0).all()
+
+
+def _overrun_case():
+    """One table of 4 blocks of 128 rows: block 0's run is exactly 128
+    slots, so its 256-slot item reads block 1's run too; blocks 2 and 3 are
+    hit-free (sentinel-chunk items); the full list adds the tail covers."""
+    b, br = 128, 128
+    plan = tsp.make_stream_plan((512,), D, b, 2, block_rows=br)
+    idx = np.stack([np.arange(128), 128 + np.arange(128)], axis=1)
+    idx = idx[None].astype(np.int32)  # [1, B, 2]
+    work = _work(plan, idx, np.ones_like(idx, np.float32), False)
+    first = [i for i in range(work.num_real_items) if work.item_block[i] == 0]
+    assert len(first) == 1
+    u0 = int(work.item_u[first[0]])
+    assert (work.rows_u.reshape(-1)[u0 + 128: u0 + 256] >= br).all()
+    return plan, work
+
+
+@pytest.mark.parametrize("case", ["overrun", "multi_table"])
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+def test_stream_rows_matches_jax(case, table_dtype, mm):
+    """Bit-exact against JAX on the full list, and every slot holds its
+    row: table[padded_offsets[t] + rows_u] (rounded to mm), 0 at
+    sentinels."""
+    rng = np.random.default_rng(11)
+    if case == "overrun":
+        plan, work = _overrun_case()
+    else:
+        _, plan, idx, wt, _, _ = _setup()
+        work = _work(plan, idx, wt, False)
+    table = rng.normal(size=(plan.padded_rows, D)).astype(np.float32)
+    jt = jnp.asarray(table, getattr(jnp, table_dtype))
+    want = np.asarray(jk.stream_rows(
+        plan, jt, jnp.asarray(work.rows_u), jnp.asarray(work.item_block),
+        jnp.asarray(work.item_row0), jnp.asarray(work.item_u),
+        mm_dtype=getattr(jnp, mm), interpret=True))
+    tt = _t(np.asarray(jt.astype(jnp.float32))).to(getattr(torch, table_dtype))
+    got = tk.stream_rows(
+        plan, tt, _t(work.rows_u), _t(work.item_block), _t(work.item_row0),
+        _t(work.item_u), mm_dtype=getattr(torch, mm))
+    np.testing.assert_array_equal(got.numpy(), want)
+    rows = work.rows_u.reshape(-1)
+    t_of = np.repeat(work.w2t, 1024)
+    real = rows != tsp.SENTINEL_ROW
+    ref = tt[torch.from_numpy(np.asarray(plan.padded_offsets)[t_of[real]]
+                              + rows[real])].to(getattr(torch, mm)).float()
+    torch.testing.assert_close(got[torch.from_numpy(real)], ref, rtol=0,
+                               atol=0)
+    assert (got.numpy()[~real] == 0).all()
+
+
+def test_stream_rows_needs_the_full_list():
+    """The touched-only list has no cover items: its tail slots stay
+    unwritten (NaN in the plain version, garbage in the kernel)."""
+    _, plan, idx, wt, _, table = _setup()
+    work = _work(plan, idx, wt, True)
+    got = tk.stream_rows(
+        plan, _t(table), _t(work.rows_u), _t(work.item_block),
+        _t(work.item_row0), _t(work.item_u))
+    unwritten = torch.isnan(got).any(1)
+    assert bool(unwritten.any())
+    assert not bool(unwritten[torch.from_numpy(
+        work.rows_u.reshape(-1) != tsp.SENTINEL_ROW)].any())
+
+
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weights", ["unit", "random"])
+def test_window_pool_matches_jax(mm, weights):
+    rng, plan, idx, wt, _, _ = _setup()
+    work = _work(plan, idx, wt, False)
+    wts = work.wts_u if weights == "random" else _unit_wts(work)
+    r_u = rng.normal(size=(plan.u_total, D)).astype(np.float32)
+    want = np.asarray(jk.window_pool(
+        plan, jnp.asarray(r_u), jnp.asarray(work.vals_u), jnp.asarray(wts),
+        jnp.asarray(work.w2t), mm_dtype=getattr(jnp, mm), interpret=True))
+    got = tk.window_pool(plan, _t(r_u), _t(work.vals_u), _t(wts),
+                         _t(work.w2t), mm_dtype=getattr(torch, mm))
+    assert got.shape == (len(TABLES), B, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+def test_stream_embedding_fwd_matches_jax(mm):
+    """K3 then K4 against JAX's stream_embedding_fwd and against the
+    port's own gather forward (one F.embedding_bag)."""
+    from dlrm_tpu_torch.ops.embedding import grouped_embedding_bag
+
+    _, plan, idx, wt, _, table = _setup()
+    work = _work(plan, idx, wt, False)
+    arrays = (work.rows_u, work.vals_u, work.wts_u, work.w2t,
+              work.item_block, work.item_row0, work.item_u)
+    want = np.asarray(jk.stream_embedding_fwd(
+        plan, jnp.asarray(table), *[jnp.asarray(a) for a in arrays],
+        mm_dtype=getattr(jnp, mm), interpret=True))
+    got = tk.stream_embedding_fwd(plan, _t(table), *[_t(a) for a in arrays],
+                                  mm_dtype=getattr(torch, mm))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if mm == "float32":
+        ref = grouped_embedding_bag(
+            _t(table), torch.tensor(plan.padded_offsets), _t(idx), _t(wt),
+            plan.hot)
+        torch.testing.assert_close(got.transpose(0, 1), ref, rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_kernel_wrappers_reject_bad_inputs():
+    rng, plan, idx, wt, dly, table = _setup()
+    work = _work(plan, idx, wt, False)
+    vals, wts, w2t = _t(work.vals_u), _t(work.wts_u), _t(work.w2t)
+    items = [_t(work.rows_u), _t(work.item_block), _t(work.item_row0),
+             _t(work.item_u)]
+    r_u = torch.zeros((plan.u_total, D))
+    with pytest.raises(TypeError, match="out_dtype"):
+        tk.window_grads(_t(dly), vals, wts, w2t, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="mm_dtype"):
+        tk.window_grads(_t(dly), vals, wts, w2t, mm_dtype=torch.float16)
+    with pytest.raises(ValueError, match="unit column stride"):
+        tk.window_grads(_t(dly).transpose(1, 2), vals, wts, w2t)
+    with pytest.raises(TypeError, match="dtype"):
+        tk.window_grads(_t(dly), vals.long(), wts, w2t)
+    with pytest.raises(ValueError, match="elements"):
+        tk.window_grads(_t(dly), vals[:-1], wts, w2t)
+    with pytest.raises(ValueError, match="shape"):
+        tk.stream_rows(plan, _t(table)[:-1], *items)
+    with pytest.raises(TypeError, match="out_dtype"):
+        tk.stream_rows(plan, _t(table), *items, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.stream_rows(plan, _t(table).t().contiguous().t(), *items)
+    with pytest.raises(ValueError, match="shape"):
+        tk.window_pool(plan, r_u[:-1], vals, wts, w2t)
+    with pytest.raises(TypeError, match="dtype"):
+        tk.window_pool(plan, r_u.double(), vals, wts, w2t)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tk.window_pool(plan, r_u.to("meta"), vals.to("meta"),
+                       wts.to("meta"), w2t.to("meta"))
+    with pytest.raises(ValueError, match="span devices"):
+        tk.window_pool(plan, r_u.to("meta"), vals, wts, w2t)

@@ -1,7 +1,8 @@
 """The port's streamed train step (dlrm_tpu_torch/train/stream_step.py)
-against dlrm_tpu's make_stream_train_step (Pallas K2 in interpret mode),
-over 3 steps with identical parameters (bridge.py) and identical batches.
-Mirrors the cases of tests/test_stream_step.py with their tolerances: loss
+against dlrm_tpu's make_stream_train_step (Pallas kernels in interpret
+mode), over 3 steps with identical parameters (bridge.py) and identical
+batches, for every fwd_impl/grad_impl combination of
+tests/test_stream_step.py. Mirrors its cases with their tolerances: loss
 rtol 1e-5 / atol 1e-6 at every step, params and accumulators rtol 1e-4 /
 atol 1e-5 after the last (dense elements whose Adagrad grads are all at
 rounding level excepted, see _assert_params_close); bf16 tables (round to
@@ -91,14 +92,15 @@ class Pair:
         return (jax.tree_util.tree_map(jnp.asarray, self.jp),
                 jax.tree_util.tree_map(jnp.asarray, self.js))
 
-    def jax_step(self, **kw):
+    def jax_step(self, fwd_impl="gather", grad_impl="gather", **kw):
         return jstep.make_stream_train_step(
-            self.jmodel, self.optimizer, self.jplan, fwd_impl="gather",
-            grad_impl="gather", interpret=True, **kw)
+            self.jmodel, self.optimizer, self.jplan, fwd_impl=fwd_impl,
+            grad_impl=grad_impl, interpret=True, **kw)
 
-    def port_step(self, **kw):
+    def port_step(self, fwd_impl="gather", grad_impl="gather", **kw):
         return tstep.make_stream_train_step(
-            self.tmodel, self.optimizer, self.tplan, device="cpu", **kw)
+            self.tmodel, self.optimizer, self.tplan, fwd_impl=fwd_impl,
+            grad_impl=grad_impl, device="cpu", **kw)
 
     def batches(self, arrays, flat=False, unit=False, touched=False):
         """Device batches for both sides from the same numpy arrays."""
@@ -296,14 +298,61 @@ def test_stream_step_bf16_tables_tracks_jax():
                                p32["emb"]["stacked"], rtol=0.05, atol=0.02)
 
 
+@pytest.mark.parametrize("optimizer", ["sgd", "rwsadagrad", "adagrad"])
+@pytest.mark.parametrize("fwd_impl,grad_impl",
+                         [("stream", "onehot"), ("gather", "onehot")])
+def test_kernel_paths_match_jax(optimizer, fwd_impl, grad_impl):
+    """The streamed forward (K3 + K4) and the one-hot grads (K1) on the
+    full item list, the padded layout, unit weights: the batches of
+    test_stream_step_matches_jax, so only the kernels differ."""
+    pair = Pair(optimizer)
+    jb, tb = pair.batches([_arrays(s, weights="none") for s in range(STEPS)])
+    impl = dict(fwd_impl=fwd_impl, grad_impl=grad_impl)
+    (jp, js), (tp, ts) = _run_both(pair, jb, tb, jkw=impl, tkw=impl)
+    _assert_params_close(tp, jp, js)
+    _assert_close_trees(ts, js, PARAM)
+
+
+def test_stream_fwd_ragged_hot_sizes_random_weights():
+    """("stream", "onehot") with per-table hot sizes, random weights (K4
+    and K1 weigh every slot) and the flat device layout."""
+    hot = (4, 1, 3)
+    pair = Pair("rwsadagrad", hot=hot)
+    arrays = [_arrays(70 + s, hot=hot, weights="random") for s in range(STEPS)]
+    jb, tb = pair.batches(arrays, flat=True)
+    impl = dict(fwd_impl="stream", grad_impl="onehot")
+    (jp, js), (tp, ts) = _run_both(pair, jb, tb, jkw=impl, tkw=impl)
+    _assert_params_close(tp, jp, js)
+    _assert_close_trees(ts, js, PARAM)
+
+
+def test_grad_impl_defaults_to_onehot_as_in_jax():
+    import inspect
+
+    for fn in (tstep.make_stream_train_step, jstep.make_stream_train_step):
+        params = inspect.signature(fn).parameters
+        assert params["grad_impl"].default == "onehot"
+        assert params["fwd_impl"].default == "gather"
+
+
 def test_stream_step_rejects_unported_paths():
     pair = Pair("sgd")
-    for kw in (dict(fwd_impl="stream"), dict(grad_impl="onehot")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # an unknown option is refused, as JAX's step refuses it
+    for kw in (dict(fwd_impl="scatter"), dict(grad_impl="dense")):
+        with pytest.raises(ValueError, match="_impl must be"):
             pair.port_step(**kw)
+    # the streamed forward needs the full cover list: K3 would leave the
+    # tail slots of a touched-only list unwritten
+    _, tb = pair.batches([_arrays(0, weights="none")], touched=True)
+    assert tb[0].stream.touched_only
+    p, s = pair.port_state()
+    with pytest.raises(ValueError, match="full item list"):
+        pair.port_step(fwd_impl="stream")(p, s, tb[0], LR)
     model = DLRMModel(DLRMConfig(**dict(KW, weighted_pooling="learned")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_stream_train_step(model, "sgd", pair.tplan, device="cpu")
+    for fwd_impl in ("gather", "stream"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tstep.make_stream_train_step(model, "sgd", pair.tplan,
+                                         fwd_impl=fwd_impl, device="cpu")
     model = DLRMModel(DLRMConfig(**dict(KW, interaction="cat")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstep.make_stream_train_step(model, "sgd", pair.tplan, device="cpu")
