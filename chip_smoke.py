@@ -40,8 +40,22 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      kernel launched once per step; the profile; one full-width K1, K3 and
      K4 call against its plain version; each kernel's time, its plain
      version's and its bound from this run's data, and the library
-     yardsticks (K4 against one index_add_, K3+K4 against one
-     F.embedding_bag, gather_grads beside K1).
+     yardsticks (K3 against one index_select of the slots' rows, K4
+     against one index_add_, K3+K4 against one F.embedding_bag,
+     gather_grads beside K1).
+  5. the probes (dlrm_tpu_torch/probes/, the port of bench_scripts/'s
+     Pallas probes P1-P6): each probe kernel against its plain version at a
+     small size and at its probe's own size (row_gather, row_scatter_add,
+     block_stream, t3_reshape_add and the k2_bisect skeletons bit-identical;
+     k2_bisect V1/V2/V5/V6 within rtol 1e-5 / atol 1e-6 of the plain sgd
+     update and bit-identical to K2; t2_contract and t4_onehot_accumulate
+     rtol 1e-5 / atol 1e-4; t6_revolve_accumulate atol 1e-5); then every
+     launch count set to 0, the six probes' main() at their own sizes (K2's
+     bisection also at the main-path shape, with one index_add_ as V1's
+     library call and K2 itself on a ladder of configurations from V1's sgd
+     on fp32 to the train step's rwsadagrad on bf16), the counts read, and
+     the card's copy, revolve, gather and scatter figures and each probe
+     kernel's time, plain time, bound and library yardstick.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -64,9 +78,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dlrm_tpu_torch.config import DLRMConfig
-from dlrm_tpu_torch.data.random_data import HostBatch, ragged_multihot_batch
+from dlrm_tpu_torch.data.random_data import (
+    V2_HOT_SIZES,
+    HostBatch,
+    ragged_multihot_batch,
+)
 from dlrm_tpu_torch.models.dlrm import DLRMModel
 from dlrm_tpu_torch.native import stream_native
+from dlrm_tpu_torch.ops import probe_kernels as pk
 from dlrm_tpu_torch.ops.stream_kernels import (
     LAUNCHES,
     gather_grads,
@@ -81,6 +100,15 @@ from dlrm_tpu_torch.ops.stream_kernels import (
     window_pool_plain,
 )
 from dlrm_tpu_torch.ops.stream_plan import SENTINEL_ROW, make_stream_plan
+from dlrm_tpu_torch.probes import (
+    k2_bisect as p3,
+    kernel_feasibility as p6,
+    pallas_probe as p5,
+    revolve_probe as p4,
+    scan_probe as p1,
+    stream_variants as p2,
+)
+from dlrm_tpu_torch.probes.common import time_ms
 from dlrm_tpu_torch.train.stream_step import (
     cast_emb,
     init_stream_opt_state,
@@ -91,10 +119,9 @@ from dlrm_tpu_torch.train.stream_step import (
 )
 
 KERNELS = ("window_grads", "stream_update", "stream_rows", "window_pool")
+CUDA = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM published fp32 rate outside the tensor cores
-V2_HOT_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1,
-                12, 100, 27, 10, 3, 1, 1)
 BATCH = 16384
 # the mid-size ragged plan of phases 2 and 2b
 MID_TABLES = (40_000, 3_000, 120_000, 500, 70_000, 20_000, 9_000, 150_000)
@@ -116,19 +143,6 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps):
-    """Mean ms per call of fn over `reps` calls, by CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def compare_update(name, ref, got, acc_ref=None, acc_got=None):
@@ -177,9 +191,10 @@ def phase_build():
         r = fn()
         return r, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as ex:
+    sources = KERNELS + pk.SOURCES
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as ex:
         builds = {k: ex.submit(timed, functools.partial(kernel_library, k))
-                  for k in KERNELS}
+                  for k in sources}
         native = ex.submit(timed, stream_native.available)
         build_s = {k: f.result()[1] for k, f in builds.items()}
         native_ok, native_s = native.result()
@@ -475,7 +490,7 @@ def run_steps(tag, step, params, opt_state, plan, cfg, touched):
             batch = to_dev(hb, plan, timing)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = dict(LAUNCHES)
+    launches = {k: LAUNCHES[k] for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).float().cpu().tolist()
     log(f"{tag} losses: " + " ".join(f"{x:.6f}" for x in losses))
@@ -568,10 +583,11 @@ def phase_gather_path():
         f"ulp_max {r['ulp_max']} ulp_diff_elems {r['ulp_diff_elems']} "
         f"acc_max_abs {r['acc_max_abs']:.3e}")
     del t_p, a_p
-    k2_ms = cuda_ms(lambda: stream_update("rwsadagrad", plan, t_k, a_k,
-                                          *args, **kw), 10)
-    plain_ms = cuda_ms(lambda: stream_update_plain(
-        "rwsadagrad", plan, t_k, a_k, *args, **kw), 3)
+    k2_ms = time_ms(lambda: stream_update("rwsadagrad", plan, t_k, a_k,
+                                          *args, **kw), CUDA, 10,
+                    warmup=0)
+    plain_ms = time_ms(lambda: stream_update_plain(
+        "rwsadagrad", plan, t_k, a_k, *args, **kw), CUDA, 3, warmup=0)
     # bytes the function must move once: each real hit's G row (fp32),
     # rows_u and the item arrays, and each touched row's bf16 table row and
     # its fp32 accumulator, read and written
@@ -648,18 +664,35 @@ def phase_kernel_path():
         f"K4 max abs diff {k4_err:.3e}")
 
     # times: each kernel, its plain version, the library yardsticks
-    k1_ms = cuda_ms(lambda: window_grads(*k1_args, mm_dtype=mm), 10)
-    k1_plain = cuda_ms(lambda: window_grads_plain(*k1_args, mm_dtype=mm), 3)
-    gg_ms = cuda_ms(lambda: gather_grads(*k1_args), 10)
-    k3_ms = cuda_ms(lambda: stream_rows(*k3_args, mm_dtype=mm), 10)
-    k3_plain = cuda_ms(lambda: stream_rows_plain(*k3_args, mm_dtype=mm), 3)
-    k4_ms = cuda_ms(lambda: window_pool(*k4_args, mm_dtype=mm), 10)
-    k4_plain = cuda_ms(lambda: window_pool_plain(*k4_args, mm_dtype=mm), 3)
+    k1_ms = time_ms(lambda: window_grads(*k1_args, mm_dtype=mm), CUDA, 10,
+                    warmup=0)
+    k1_plain = time_ms(lambda: window_grads_plain(*k1_args, mm_dtype=mm),
+                       CUDA, 3, warmup=0)
+    gg_ms = time_ms(lambda: gather_grads(*k1_args), CUDA, 10, warmup=0)
+    k3_ms = time_ms(lambda: stream_rows(*k3_args, mm_dtype=mm), CUDA, 10,
+                    warmup=0)
+    k3_plain = time_ms(lambda: stream_rows_plain(*k3_args, mm_dtype=mm),
+                       CUDA, 3, warmup=0)
+    # K3's library yardstick: one index_select of every slot's global row.
+    # It differs from K3 at the sentinel slots (row 0, not zeros) and in
+    # its output type (the bf16 table's, not fp32).
+    slot_rows = torch.where(
+        sw.rows_u.reshape(-1) != SENTINEL_ROW,
+        torch.tensor(plan.padded_offsets, device="cuda")[
+            sw.w2t.long().repeat_interleave(1024)] + sw.rows_u.reshape(-1),
+        0)
+    k3_lib = time_ms(lambda: torch.index_select(emb, 0, slot_rows), CUDA,
+                     10, warmup=0)
+    k4_ms = time_ms(lambda: window_pool(*k4_args, mm_dtype=mm), CUDA, 10,
+                    warmup=0)
+    k4_plain = time_ms(lambda: window_pool_plain(*k4_args, mm_dtype=mm),
+                       CUDA, 3, warmup=0)
     idx = (sw.w2t.long()[:, None, None] * BATCH + sw.vals_u.long()).reshape(-1)
-    k4_lib = cuda_ms(lambda: torch.zeros((t_ * BATCH, d), device="cuda")
-                     .index_add_(0, idx, r_u), 10)
-    k34_ms = cuda_ms(lambda: window_pool(plan, stream_rows(
-        *k3_args, mm_dtype=mm), sw.vals_u, wts, sw.w2t, mm_dtype=mm), 10)
+    k4_lib = time_ms(lambda: torch.zeros((t_ * BATCH, d), device="cuda")
+                     .index_add_(0, idx, r_u), CUDA, 10, warmup=0)
+    k34_ms = time_ms(lambda: window_pool(plan, stream_rows(
+        *k3_args, mm_dtype=mm), sw.vals_u, wts, sw.w2t, mm_dtype=mm), CUDA,
+        10, warmup=0)
     # the gather path's forward as one F.embedding_bag over the flat hits
     hot = torch.tensor(V2_HOT_SIZES, device="cuda")
     tid = torch.repeat_interleave(torch.arange(t_, device="cuda"),
@@ -668,8 +701,8 @@ def phase_kernel_path():
         plan.padded_offsets, device="cuda")[tid]
     bag_len = torch.repeat_interleave(hot, BATCH)
     bag_off = torch.cumsum(bag_len, 0) - bag_len
-    eb_ms = cuda_ms(lambda: F.embedding_bag(rows, emb, bag_off, mode="sum"),
-                    10)
+    eb_ms = time_ms(lambda: F.embedding_bag(rows, emb, bag_off, mode="sum"),
+                    CUDA, 10, warmup=0)
     log(f"phase 4: K3+K4 {k34_ms:.3f} ms against one F.embedding_bag "
         f"{eb_ms:.3f} ms on the same batch; gather_grads {gg_ms:.3f} ms "
         f"beside K1 {k1_ms:.3f} ms")
@@ -696,7 +729,7 @@ def phase_kernel_path():
             "dlrm_tpu/ops/stream_kernels.py:613", launches["stream_rows"],
             k3_err, k3_ms, k3_plain,
             n_slots * d * 4 + touched * d * 2 + n_slots * 4 + items * 12,
-            0, None),
+            0, k3_lib),
         # each hit's R row, vals_u, wts_u and w2t read; pooled written;
         # a multiply and an add per hit element
         "window_pool": kernel_entry(
@@ -706,6 +739,322 @@ def phase_kernel_path():
             n_hits * d * 4 + n_slots * 8 + sw.w2t.numel() * 4
             + t_ * BATCH * d * 4, n_hits * d * 2, k4_lib),
     }
+    return entries
+
+
+# ------------------------------------------------------------- phase 5
+# probe kernel -> (its source, the TPU kernel it stands in for first; the
+# others are in PERF.md's table)
+PROBE_KERNELS = {
+    "row_gather": ("dlrm_tpu_torch/csrc/probe_rows.cu",
+                   "bench_scripts/scan_probe.py:86"),
+    "row_scatter_add": ("dlrm_tpu_torch/csrc/probe_rows.cu",
+                        "bench_scripts/pallas_probe.py:141"),
+    "block_stream": ("dlrm_tpu_torch/csrc/block_stream.cu",
+                     "bench_scripts/revolve_probe.py:31"),
+    "k2_bisect": ("dlrm_tpu_torch/csrc/k2_bisect.cu",
+                  "bench_scripts/k2_bisect.py:178"),
+    "t2_contract": ("dlrm_tpu_torch/csrc/feasibility.cu",
+                    "bench_scripts/kernel_feasibility.py:62"),
+    "t3_reshape_add": ("dlrm_tpu_torch/csrc/feasibility.cu",
+                       "bench_scripts/kernel_feasibility.py:83"),
+    "t4_onehot_accumulate": ("dlrm_tpu_torch/csrc/feasibility.cu",
+                             "bench_scripts/kernel_feasibility.py:99"),
+    "t6_revolve_accumulate": ("dlrm_tpu_torch/csrc/feasibility.cu",
+                              "bench_scripts/kernel_feasibility.py:162"),
+}
+
+
+def _gen(seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return gen
+
+
+def _held(name, got, want, rtol=0.0, atol=0.0):
+    """got against want: bit for bit when rtol = atol = 0, else within
+    them; returns the max abs difference."""
+    torch.cuda.synchronize()
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    ok = (torch.equal(got, want) if rtol == 0 and atol == 0
+          else torch.allclose(got, want, rtol=rtol, atol=atol))
+    check(ok, f"{name}: kernel differs from its plain version (max abs "
+          f"{err:.3e}, rtol {rtol}, atol {atol})")
+    return err
+
+
+def _randint(hi, shape, seed):
+    return torch.randint(0, hi, shape, generator=_gen(seed), device="cuda",
+                         dtype=torch.int32)
+
+
+def _perm(n, seed):
+    return torch.randperm(n, generator=_gen(seed), device="cuda").int()
+
+
+def rows_vs_plain():
+    """row_gather and row_scatter_add_: small, then P1's and P5's inputs."""
+    t = torch.randn((3000, 128), generator=_gen(20), device="cuda")
+    i = _randint(256, (1000,), 21)
+    gather_errs = []
+    for name, tab, idx in (("rows", t, i),
+                           ("transposed view", t[:256].T.contiguous().T, i),
+                           ("2-D idx", t, i.view(125, 8))):
+        gather_errs.append(_held(f"row_gather small {name}",
+                                 pk.row_gather(tab, idx),
+                                 pk.row_gather_plain(tab, idx)))
+    u = _perm(3000, 22)[:1200]
+    delta = torch.randn((1200, 128), generator=_gen(23), device="cuda")
+    scatter_errs = [_held(
+        "row_scatter_add small",
+        pk.row_scatter_add_(t.clone(), u, delta, check_unique=True),
+        pk.row_scatter_add_plain(t.clone(), u, delta))]
+    table, _, idx0, idx_sorted, _, _ = p1.inputs("cuda")
+    for name, idx in (("random", idx0), ("sorted", idx_sorted)):
+        gather_errs.append(_held(f"row_gather P1 {name}",
+                                 pk.row_gather(table, idx),
+                                 pk.row_gather_plain(table, idx)))
+    gather_plain = time_ms(lambda: pk.row_gather_plain(table, idx0), CUDA,
+                           3, warmup=0)
+    del table
+    table, _, idx_u, delta = p5.inputs("cuda")
+    scatter_errs.append(_held(
+        "row_scatter_add P5",
+        pk.row_scatter_add_(table.clone(), idx_u, delta),
+        pk.row_scatter_add_plain(table.clone(), idx_u, delta)))
+    scatter_plain = time_ms(
+        lambda: pk.row_scatter_add_plain(table, idx_u, delta), CUDA, 3,
+        warmup=0)
+    log(f"phase 5: row_gather ({len(gather_errs) - 2} small cases, P1 random "
+        "and sorted) and row_scatter_add (small, P5) bit-identical to their "
+        "plain versions")
+    return {"row_gather": {"err": max(gather_errs), "plain_ms": gather_plain},
+            "row_scatter_add": {"err": max(scatter_errs),
+                                "plain_ms": scatter_plain}}
+
+
+def block_stream_vs_plain():
+    """block_stream on every kind of walk: small, then P4's and P2's
+    shapes; bit for bit."""
+    errs = []
+    for nblk, br, tag in ((10, 48, "small"), (p4.NBLK, p4.BR, "P4")):
+        t = torch.randn((nblk * br, 128), generator=_gen(24), device="cuda")
+        perm = _perm(nblk, 25)
+        kw = dict(scale=1.0, shift=1.0, block_rows=br)
+        walks = (("S", None, False, 1), ("D", perm, False, 1),
+                 ("M", perm, True, 1), ("N", None, True, 1),
+                 ("P", None, False, 2), ("Q", None, False, 4),
+                 ("D depth 4", perm[: nblk // 2], False, 4))
+        for name, ib, in_place, depth in walks:
+            out = None if in_place else torch.full_like(t, -7.0)
+            want = pk.block_stream_plain(
+                t.clone(), ib, out=None if out is None else out.clone(),
+                depth=depth, **kw)
+            got = pk.block_stream(t.clone(), ib, out=out, depth=depth, **kw)
+            errs.append(_held(f"block_stream {tag} {name}", got, want))
+            del got, want, out
+    out = torch.empty_like(t)
+    plain_ms = time_ms(lambda: pk.block_stream_plain(t, out=out, **kw), CUDA,
+                       3, warmup=0)
+    del t, out
+    t = torch.randn((p2.R, 128), generator=_gen(26), device="cuda")
+    kw = dict(scale=p2.SCALE, shift=p2.SHIFT, block_rows=p2.BR)
+    want = pk.block_stream_plain(t.clone(), **kw)
+    errs.append(_held("block_stream P2a aliased", pk.block_stream(t, **kw),
+                      want))
+    p2a_plain = time_ms(lambda: pk.block_stream_plain(t, **kw), CUDA, 3,
+                        warmup=0)
+    log(f"phase 5: block_stream bit-identical to its plain version in "
+        f"{len(errs)} cases (static and data-dependent walks, in place and "
+        "not, depth 1/2/4; P4's and P2a's shapes); plain version "
+        f"{plain_ms:.3f} ms at P4's shape, {p2a_plain:.3f} ms at P2a's")
+    return {"block_stream": {"err": max(errs), "plain_ms": plain_ms}}
+
+
+def k2_bisect_vs_plain():
+    """Every variant against its plain version (the sgd update within rtol
+    1e-5 / atol 1e-6, the skeletons bit for bit) and the full variants
+    against K2 bit for bit: phase 2's plan, the probe and the main-path
+    shapes. Returns the plain version's time at the main-path shape."""
+    def mid():
+        plan = make_stream_plan(MID_TABLES, 128, MID_B, MID_HOTS,
+                                block_rows=2048)
+        hb = ragged_multihot_batch(np.random.default_rng(1), 13, MID_TABLES,
+                                   MID_HOTS, MID_B)
+        return plan, hb.with_stream_work(plan).stream
+
+    err = 0.0
+    for tag, make in (("mid", mid), ("probe", p3.probe_shape),
+                      ("main-path", p3.main_path_shape)):
+        plan, work = make()
+        items = tuple(torch.from_numpy(a).cuda() for a in (
+            work.rows_u, work.item_block, work.item_row0, work.item_u))
+        gen = _gen(27)
+        table = torch.randn((plan.padded_rows, 128), generator=gen,
+                            device="cuda")
+        g_u = torch.randn((plan.u_total, 128), generator=gen, device="cuda")
+        args = (g_u, *items, 0.05)
+        want = pk.k2_bisect_plain("V1", plan, table.clone(), *args)
+        k2 = stream_update("sgd", plan, table.clone(), None, *args)[0]
+        for v, sums in pk.K2_VARIANTS.items():
+            got = pk.k2_bisect(v, plan, table.clone(), *args)
+            if sums:
+                err = max(err, _held(f"k2_bisect {tag} {v}", got, want,
+                                     rtol=1e-5, atol=1e-6))
+                _held(f"k2_bisect {tag} {v} against K2", got, k2)
+            else:
+                err = max(err, _held(f"k2_bisect {tag} {v} (skeleton)", got,
+                                     table))
+            del got
+        log(f"phase 5: k2_bisect {tag}: V1-V6 hold (full variants max abs "
+            f"{err:.3e} from the plain version, bit-identical to K2; "
+            "skeletons leave the table unchanged)")
+        del want, k2
+    plain_ms = time_ms(lambda: pk.k2_bisect_plain("V1", plan, table, *args),
+                       CUDA, 3, warmup=0)
+    return {"k2_bisect": {"err": err, "plain_ms": plain_ms}}
+
+
+def feasibility_vs_plain():
+    """T2, T3, T4 and T6, small and at P6's sizes; at P6's sizes also the
+    kernel's, the plain version's and the library call's time, the bytes
+    and the operations."""
+    def cases(small):
+        gen = _gen(28)
+        s, l, r, c = (2, 16, 32, 24) if small else (8, 128, 256, 128)
+        a = torch.randn((s, l, r), generator=gen, device="cuda")
+        b = torch.randn((s, l, c), generator=gen, device="cuda")
+        x3 = (_randint(1000, (3, 5), 29) if small else
+              torch.arange(8 * 128, dtype=torch.int32,
+                           device="cuda").reshape(8, 128))
+        cap, rows, d = (40, 30, 8) if small else (256, 512, 128)
+        idx = _randint(rows, (cap, 1), 30)
+        g = torch.randn((cap, d), generator=gen, device="cuda")
+        zeros = torch.zeros((rows, d), device="cuda")
+        nb, steps, br, d6 = (2, 3, 5, 8) if small else (4, 3, 256, 128)
+        x6 = torch.randn((nb * steps * br, d6), generator=gen, device="cuda")
+        return {
+            "t2_contract": (
+                lambda: pk.t2_contract(a, b),
+                lambda: pk.t2_contract_plain(a, b),
+                lambda: torch.einsum("slr,sld->rd", a, b), (1e-5, 1e-4),
+                4 * (a.numel() + b.numel() + r * c), 2 * s * l * r * c),
+            "t3_reshape_add": (
+                lambda: pk.t3_reshape_add(x3),
+                lambda: pk.t3_reshape_add_plain(x3),
+                lambda: torch.add(x3, 1), (0, 0), 8 * x3.numel(),
+                x3.numel()),
+            "t4_onehot_accumulate": (
+                lambda: pk.t4_onehot_accumulate(idx, g, rows),
+                lambda: pk.t4_onehot_accumulate_plain(idx, g, rows),
+                lambda: torch.index_add(zeros, 0, idx.view(-1), g),
+                (1e-5, 1e-4), 4 * (cap + g.numel() + rows * d), g.numel()),
+            "t6_revolve_accumulate": (
+                lambda: pk.t6_revolve_accumulate(x6, steps, br),
+                lambda: pk.t6_revolve_accumulate_plain(x6, steps, br),
+                lambda: torch.sum(x6.view(nb, steps, br, d6), dim=1),
+                (0, 1e-5), 4 * (x6.numel() + nb * br * d6), x6.numel()),
+        }
+
+    out = {}
+    for small in (True, False):
+        for name, (kern, plain, lib, (rtol, atol), nbytes,
+                   nops) in cases(small).items():
+            err = _held(f"{name} {'small' if small else 'P6'}", kern(),
+                        plain(), rtol=rtol, atol=atol)
+            if not small:
+                out[name] = {"err": err, "ms": time_ms(kern, CUDA, 20, warmup=0),
+                             "plain_ms": time_ms(plain, CUDA, 20, warmup=0),
+                             "library_ms": time_ms(lib, CUDA, 20, warmup=0),
+                             "nbytes": nbytes, "nops": nops}
+    log("phase 5: t2_contract, t3_reshape_add, t4_onehot_accumulate and "
+        "t6_revolve_accumulate hold against their plain versions, small and "
+        "at P6's sizes (max abs " + ", ".join(
+            f"{k} {v['err']:.3e}" for k, v in out.items()) + ")")
+    return out
+
+
+def phase_probes():
+    """Phase 5: the probe kernels against their plain versions, then the six
+    probes' entry points (counted launches) and the card's figures."""
+    held = {}
+    for fn in (rows_vs_plain, block_stream_vs_plain, k2_bisect_vs_plain,
+               feasibility_vs_plain):
+        held.update(fn())
+        torch.cuda.empty_cache()
+
+    for k in pk.KERNELS:
+        LAUNCHES[k] = 0
+    log("phase 5: the probes' entry points")
+    r1 = p1.main()
+    r5 = p5.main()
+    r2 = p2.main()
+    r4 = p4.main()
+    r3 = p3.main()
+    r6 = p6.main()
+    launches = {k: LAUNCHES[k] for k in pk.KERNELS}
+    torch.cuda.empty_cache()
+    log("phase 5: launches on the probe path: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    for k, v in launches.items():
+        check(v > 0, f"phase 5: {k} was not launched by the probes")
+    for name, status in {**r2["t1"], **r6}.items():
+        check(status == "OK", f"phase 5: {name}: {status}")
+
+    st = r2["stream"]
+    log("phase 5: figures of this card (GB/s counts each byte read and "
+        "written once):")
+    log(f"  copy: Tensor.copy_ {st['torch copy_ (device to device)']['gbps']:.1f}"
+        f" GB/s (P2, 2.66 GB), {r4['C']['gbps']:.1f} GB/s (P4, 1 GiB); "
+        f"block_stream in place {st['stream alias donate']['gbps']:.1f}, "
+        f"out of place {st['stream no-alias donate']['gbps']:.1f} GB/s (P2)")
+    log(f"  revolve (P4): static depth 1/2/4 {r4['S']['gbps']:.1f} / "
+        f"{r4['P']['gbps']:.1f} / {r4['Q']['gbps']:.1f} GB/s; dynamic "
+        f"{r4['D']['gbps']:.1f} GB/s; in place static/dynamic "
+        f"{r4['N']['gbps']:.1f} / {r4['M']['gbps']:.1f} GB/s; plain loop "
+        f"(X) {r4['X']['gbps']:.1f} GB/s")
+    log(f"  gather: row_gather {r1['row_gather random']['ns_per_row']:.3f} "
+        f"ns/row random, {r1['row_gather sorted']['ns_per_row']:.3f} sorted "
+        f"(P1), {r5['row_gather']['ns_per_row']:.3f} (P5); index_select "
+        f"{r1['torch index_select random fp32']['ns_per_row']:.3f}")
+    log(f"  scatter-add: row_scatter_add "
+        f"{r5['row_scatter_add']['ns_per_row']:.3f} ns/row, index_add_ "
+        f"{r5['torch index_add_ (unique)']['ns_per_row']:.3f} ns/row (P5)")
+    main3 = r3["main-path"]
+    geo = main3["geometry"]
+    log(f"  K2 at the main-path shape: V1 {main3['V1']['ms']:.3f} ms, revolve "
+        f"floor V4 {main3['V4']['ms']:.3f} ms, {p3.LIBRARY} "
+        f"{main3[p3.LIBRARY]['ms']:.3f} ms; K2 ladder "
+        + ", ".join(f"{k[3:]} {main3[k]['ms']:.3f}" for k in p3.K2_LADDER)
+        + " ms")
+
+    d = 128
+    timed = {
+        "row_gather": (r1["row_gather random"],
+                       r1["torch index_select random fp32"]["ms"], 0),
+        # one add per scattered element
+        "row_scatter_add": (r5["row_scatter_add"],
+                            r5["torch index_add_ (unique)"]["ms"],
+                            r5["row_scatter_add"]["rows"] * d),
+        # a multiply and an add per element (nbytes: 8 per element)
+        "block_stream": (r4["S"], r4["E"]["ms"], r4["S"]["nbytes"] // 4),
+        # an add per hit element; a multiply and a subtract per touched one
+        "k2_bisect": (main3["V1"], main3[p3.LIBRARY]["ms"],
+                      geo["hits"] * d + 2 * geo["touched"] * d),
+    }
+    log("phase 5: probe kernels:")
+    entries = []
+    for name, (source, replaces) in PROBE_KERNELS.items():
+        h = held[name]
+        if name in timed:
+            rec, lib_ms, nops = timed[name]
+            ms, nbytes = rec["ms"], rec["nbytes"]
+        else:
+            ms, lib_ms, nbytes, nops = (h["ms"], h["library_ms"],
+                                        h["nbytes"], h["nops"])
+        entries.append(kernel_entry(name, source, replaces, launches[name],
+                                    h["err"], ms, h["plain_ms"], nbytes,
+                                    nops, lib_ms))
     return entries
 
 
@@ -719,11 +1068,12 @@ def main() -> int:
         phase_new_kernels_vs_plain()
         k2 = phase_gather_path()
         new = phase_kernel_path()
+        probes = phase_probes()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = [new["window_grads"], k2, new["stream_rows"],
-               new["window_pool"]]
+               new["window_pool"], *probes]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

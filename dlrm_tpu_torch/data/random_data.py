@@ -113,6 +113,12 @@ class HostBatch:
         )
 
 
+# The MLPerf DLRM-v2 per-table hot sizes (214 hits per sample), as bench.py
+# draws its ragged batches.
+V2_HOT_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1,
+                12, 100, 27, 10, 3, 1, 1)
+
+
 def ragged_multihot_batch(
     rng: np.random.Generator,
     num_dense: int,

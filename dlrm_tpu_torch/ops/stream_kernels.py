@@ -195,14 +195,15 @@ def _nvcc() -> str:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-# kernel name -> (C entry point in csrc/<name>.cu, its argtypes)
+# kernel name -> (its source csrc/<source>.cu, its C entry point, argtypes
+# with the stream last); ops/probe_kernels.py adds the probes' kernels
 _ENTRY_POINTS = {
-    "window_grads": ("k1_window_grads", [
+    "window_grads": ("window_grads", "k1_window_grads", [
         _I, _P, _I64, _I64,  # dly_bf16, dly, stride_t, stride_b
         _P, _P, _P, _P,  # vals_u, wts_u, w2t, g_u
         _I64, _I, _I, _P,  # u_total, d, mm_bf16, stream
     ]),
-    "stream_update": ("k2_stream_update", [
+    "stream_update": ("stream_update", "k2_stream_update", [
         _I, _I,  # opt, table_bf16
         _P, _P, _P, _P, _P, _P, _P,  # table, acc, g_u, rows_u, item_*
         _P, _P,  # block_first, block_last scratch
@@ -212,43 +213,58 @@ _ENTRY_POINTS = {
         _I, _I,  # mm_bf16, sr
         _P,  # stream
     ]),
-    "stream_rows": ("k3_stream_rows", [
+    "stream_rows": ("stream_rows", "k3_stream_rows", [
         _I, _P, _P,  # table_bf16, table, rows_u
         _P, _P, _P, _P,  # item_block, item_row0, item_u, r_u
         _I64, _I64, _I, _I, _I,  # m_items, u_total, num_blocks, br, d
         _I, _P,  # mm_bf16, stream
     ]),
-    "window_pool": ("k4_window_pool", [
+    "window_pool": ("window_pool", "k4_window_pool", [
         _P, _P, _P, _P, _P,  # r_u, vals_u, wts_u, w2t, pooled
         _I64, _I, _I, _I, _P,  # u_total, batch, d, mm_bf16, stream
     ]),
 }
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# headers the sources include: hashed into every library's name
+_HEADERS = ("csrc/u_layout.cuh", "csrc/k2_update.cuh")
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_library(name: str) -> ctypes.CDLL:
-    """Build (at first use) and load csrc/<name>.cu, one library per kernel
-    so that several builds can run at once."""
-    symbol, argtypes = _ENTRY_POINTS[name]
-    path = build_shared(name, [f"csrc/{name}.cu"], [_nvcc(), *_NVCC_FLAGS],
-                        deps=["csrc/u_layout.cuh"])
-    lib = ctypes.CDLL(path)
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
+def kernel_library(source: str) -> ctypes.CDLL:
+    """Build (at first use) and load csrc/<source>.cu, one library per
+    source so that several builds can run at once."""
+    path = build_shared(source, [f"csrc/{source}.cu"], [_nvcc(), *_NVCC_FLAGS],
+                        deps=_HEADERS)
+    return ctypes.CDLL(path)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_point(name: str):
+    source, symbol, argtypes = _ENTRY_POINTS[name]
+    fn = getattr(kernel_library(source), symbol)
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _launch(name: str, *args) -> None:
-    """Call kernel `name`'s C entry point on the current stream, raise if
-    it reports a CUDA error, and count the launch."""
-    symbol, _ = _ENTRY_POINTS[name]
-    err = getattr(kernel_library(name), symbol)(
-        *args, torch.cuda.current_stream().cuda_stream)
+def register_kernels(entry_points: dict) -> None:
+    """Add kernels, name -> (source, C entry point, argtypes), to the table
+    _launch reads and to LAUNCHES."""
+    _ENTRY_POINTS.update(entry_points)
+    for name in entry_points:
+        LAUNCHES.setdefault(name, 0)
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    """Launch kernel `name` on dev's current stream with `args`, raise if
+    its entry point reports a CUDA error, and count the launch."""
+    with torch.cuda.device(dev):
+        err = _entry_point(name)(*args,
+                                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+        raise RuntimeError(f"{_ENTRY_POINTS[name][1]} failed: CUDA error "
+                           f"{err}")
     LAUNCHES[name] += 1
 
 
@@ -362,18 +378,17 @@ def stream_update(
     scratch = torch.empty((2, max(plan.num_blocks, 1)), dtype=torch.int32,
                           device=dev)
     sr = bool(stochastic_round) and table.dtype == torch.bfloat16
-    with torch.cuda.device(dev):
-        _launch(
-            "stream_update",
-            _OPTIMIZERS[optimizer], int(table.dtype == torch.bfloat16),
-            table.data_ptr(), None if acc is None else acc.data_ptr(),
-            g_u.data_ptr(), rows_u.data_ptr(), item_block.data_ptr(),
-            item_row0.data_ptr(), item_u.data_ptr(),
-            scratch[0].data_ptr(), scratch[1].data_ptr(),
-            m, plan.u_total, plan.num_blocks, plan.block_rows, d,
-            float(lr), float(eps), int(seed) & _U32,
-            int(mm_dtype == torch.bfloat16), int(sr),
-        )
+    _launch(
+        "stream_update", dev,
+        _OPTIMIZERS[optimizer], int(table.dtype == torch.bfloat16),
+        table.data_ptr(), None if acc is None else acc.data_ptr(),
+        g_u.data_ptr(), rows_u.data_ptr(), item_block.data_ptr(),
+        item_row0.data_ptr(), item_u.data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(),
+        m, plan.u_total, plan.num_blocks, plan.block_rows, d,
+        float(lr), float(eps), int(seed) & _U32,
+        int(mm_dtype == torch.bfloat16), int(sr),
+    )
     return (table,) if optimizer == "sgd" else (table, acc)
 
 
@@ -418,12 +433,10 @@ def window_grads(
     d = dly.shape[2]
     _check_rows4("dly", dly)
     g_u = torch.empty((uw * WINDOW, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("window_grads", int(dly.dtype == torch.bfloat16),
-                dly.data_ptr(), dly.stride(0), dly.stride(1),
-                vals_u.data_ptr(), wts_u.data_ptr(), w2t.data_ptr(),
-                g_u.data_ptr(), uw * WINDOW, d,
-                int(mm_dtype == torch.bfloat16))
+    _launch("window_grads", dev, int(dly.dtype == torch.bfloat16),
+            dly.data_ptr(), dly.stride(0), dly.stride(1), vals_u.data_ptr(),
+            wts_u.data_ptr(), w2t.data_ptr(), g_u.data_ptr(), uw * WINDOW, d,
+            int(mm_dtype == torch.bfloat16))
     return g_u
 
 
@@ -489,12 +502,11 @@ def stream_rows(
                                  mm_dtype=mm_dtype)
     _check_rows4("table", table)
     r_u = torch.empty((plan.u_total, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("stream_rows", int(table.dtype == torch.bfloat16),
-                table.data_ptr(), rows_u.data_ptr(), item_block.data_ptr(),
-                item_row0.data_ptr(), item_u.data_ptr(), r_u.data_ptr(),
-                m, plan.u_total, plan.num_blocks, plan.block_rows, d,
-                int(mm_dtype == torch.bfloat16))
+    _launch("stream_rows", dev, int(table.dtype == torch.bfloat16),
+            table.data_ptr(), rows_u.data_ptr(), item_block.data_ptr(),
+            item_row0.data_ptr(), item_u.data_ptr(), r_u.data_ptr(), m,
+            plan.u_total, plan.num_blocks, plan.block_rows, d,
+            int(mm_dtype == torch.bfloat16))
     return r_u
 
 
@@ -538,10 +550,9 @@ def window_pool(
     _check_rows4("r_u", r_u)
     t, b = len(plan.table_sizes), plan.batch
     pooled = torch.zeros((t, b, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("window_pool", r_u.data_ptr(), vals_u.data_ptr(),
-                wts_u.data_ptr(), w2t.data_ptr(), pooled.data_ptr(),
-                plan.u_total, b, d, int(mm_dtype == torch.bfloat16))
+    _launch("window_pool", dev, r_u.data_ptr(), vals_u.data_ptr(),
+            wts_u.data_ptr(), w2t.data_ptr(), pooled.data_ptr(), plan.u_total,
+            b, d, int(mm_dtype == torch.bfloat16))
     return pooled
 
 

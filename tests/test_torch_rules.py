@@ -71,6 +71,14 @@ def test_default_device_entry_points_raise_without_cuda():
     from dlrm_tpu_torch.data.random_data import fixed_multihot_batch
     from dlrm_tpu_torch.device import resolve_device
     from dlrm_tpu_torch.models.dlrm import DLRMModel
+    from dlrm_tpu_torch.probes import (
+        k2_bisect,
+        kernel_feasibility,
+        pallas_probe,
+        revolve_probe,
+        scan_probe,
+        stream_variants,
+    )
     from dlrm_tpu_torch.train.stream_step import (
         make_stream_eval_step,
         make_stream_train_step,
@@ -90,6 +98,9 @@ def test_default_device_entry_points_raise_without_cuda():
         lambda: hb.to_device(),
         lambda: make_stream_train_step(model, "sgd", plan),
         lambda: make_stream_eval_step(model, plan),
+        # the probes time the card
+        scan_probe.main, pallas_probe.main, stream_variants.main,
+        revolve_probe.main, k2_bisect.main, kernel_feasibility.main,
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
