@@ -6,10 +6,11 @@
 // V5-V6). The TPU variants switched its DMAs, its one-hot matmuls and its
 // write (conditional at the block's last item or at every grid step; the
 // pipeline's blocked output or a manual DMA). The port's K2 has other
-// stages, so the variants are K2's own kernel (k2_update.cuh) with its
-// stages switched:
+// stages, so the variants are K2's first Hopper design (k2_update.cuh, a
+// CTA per 128-row tile) with its stages switched:
 //
-//   V1  full update, writing only rows that got a hit  = K2 (sgd, fp32)
+//   V1  full update, writing only rows that got a hit: K2's bits (sgd,
+//       fp32; both sum each row's hits in slot order from zero)
 //   V2  full update, writing every row of each visited 128-row tile
 //   V3  skeleton: no G row read, no sums; scans rows_u for the hit rows and
 //       writes only those

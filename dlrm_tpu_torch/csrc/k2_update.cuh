@@ -1,6 +1,12 @@
-// K2's core, shared by stream_update.cu (the update) and k2_bisect.cu (the
-// update with its stages compiled in or out, the measurement probe P3). The
-// design notes are in stream_update.cu.
+// The first Hopper design of K2, now the measurement probe P3's alone
+// (k2_bisect.cu compiles its stages in or out): one CTA per (table block,
+// 128-row tile) with the tile's Gsum in shared memory; the CTA walks all of
+// its block's items in order, stages each item's 256 slot rows, and warp w
+// adds the hits of the tile rows r % 8 == w serially. K2 itself
+// (stream_update.cu) is now a warp per touched row's run of hits;
+// stream_update.cu takes only hash32 from here. V1 (this kernel with every
+// stage on, sgd) sums each row's hits in slot order from zero, as K2 does,
+// so the two agree to the bit.
 #pragma once
 
 #include <cuda_bf16.h>

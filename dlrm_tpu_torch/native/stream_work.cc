@@ -4,9 +4,13 @@
 // for the numpy build_stream_work (dlrm_tpu_torch/ops/stream_plan.py). It
 // buckets every hit of a batch by table block, pads each block's run to 128
 // slots, and emits the per-chunk work items the streamed update kernel
-// (csrc/stream_update.cu) consumes. Counting buckets instead of a sort (no
-// kernel depends on intra-run order), parallel across tables: this is the
-// input-pipeline stage that must keep ahead of the device step.
+// (csrc/stream_update.cu) consumes. Within a block's run the hits are then
+// sorted by row, stably in scan order (bag, then column): the numpy
+// builder's order, so both emit the same plan. The port's K2 relies on it:
+// all hits of one row are one contiguous run of slots, which one warp owns.
+// Counting sorts throughout (by block, then within each block's run by
+// row, in cache), parallel across tables: this is the input-pipeline stage
+// that must keep ahead of the device step.
 //
 // C ABI for ctypes. Built with g++ at first use by
 // dlrm_tpu_torch/native/stream_native.py.
@@ -25,6 +29,10 @@ constexpr int32_t kSentinelRow = -1;
 
 struct Item {
   int32_t block, row0, u;
+};
+
+struct Run {  // a block's hits: slots [lo, lo + n) of table-local block j
+  int32_t lo, n, j;
 };
 
 }  // namespace
@@ -80,6 +88,7 @@ int64_t build_stream_work_native(
 
   std::atomic<int64_t> err{0};
   std::vector<std::vector<Item>> items(t_);
+  std::vector<std::vector<Run>> runs(t_);
   std::vector<int32_t> useg_end(t_);
   for (int t = 0; t < t_; ++t)
     useg_end[t] = (t + 1 < t_) ? u_base[t + 1] : u_size;
@@ -149,7 +158,7 @@ int64_t build_stream_work_native(
         std::memset(vals_u + lo, 0, sizeof(int32_t) * (hi - lo));
         if (write_wts) std::memset(wts_u + lo, 0, sizeof(float) * (hi - lo));
       }
-      // fill slots (scan order; intra-run order is free)
+      // fill slots block by block, in scan order
       for (int32_t bag = 0; bag < b_; ++bag) {
         const int64_t base = int64_t(bag) * row_stride;
         for (int32_t k = 0; k < ht; ++k) {
@@ -162,6 +171,10 @@ int64_t build_stream_work_native(
           if (write_wts) wts_u[slot] = w ? w[i] : 1.0f;
         }
       }
+      // the block's run, for the sort below
+      for (int32_t j = 0; j < nb; ++j)
+        if (counts[j] > 1) runs[t].push_back({cursor[j] - counts[j],
+                                             counts[j], j});
       // clear + cover the table's U-segment tail padding
       if (u < useg_end[t]) {
         std::fill(rows_u + u, rows_u + useg_end[t], kSentinelRow);
@@ -182,6 +195,51 @@ int64_t build_stream_work_native(
   for (unsigned i = 0; i < n_threads; ++i) pool.emplace_back(worker);
   for (auto& th : pool) th.join();
   if (err.load()) return -err.load();
+
+  // sort each block's run by row, stably: a counting sort over the block's
+  // local rows through a copy of the run (its last bucket holds the
+  // malformed rows blk_of clamped into the block). Parallel across all
+  // blocks: one table can hold half of a batch's hits.
+  std::vector<Run> all_runs;
+  for (const auto& r : runs) all_runs.insert(all_runs.end(), r.begin(), r.end());
+  std::atomic<size_t> next_run{0};
+  auto sorter = [&]() {
+    std::vector<int32_t> row_pos, tmp_rows, tmp_vals;
+    std::vector<float> tmp_wts;
+    for (;;) {
+      const size_t r = next_run.fetch_add(1);
+      if (r >= all_runs.size()) return;
+      const Run run = all_runs[r];
+      auto key = [&](int32_t row) {
+        const int64_t local = int64_t(row) - int64_t(run.j) * block_rows;
+        return local >= 0 && local < block_rows ? int32_t(local) : block_rows;
+      };
+      const int32_t lo = run.lo, n = run.n;
+      row_pos.assign(block_rows + 1, 0);
+      for (int32_t s = lo; s < lo + n; ++s) row_pos[key(rows_u[s])]++;
+      int32_t pos = 0;
+      for (int32_t& c : row_pos) {
+        const int32_t m = c;
+        c = pos;
+        pos += m;
+      }
+      tmp_rows.assign(rows_u + lo, rows_u + lo + n);
+      tmp_vals.assign(vals_u + lo, vals_u + lo + n);
+      if (write_wts) tmp_wts.assign(wts_u + lo, wts_u + lo + n);
+      for (int32_t i = 0; i < n; ++i) {
+        const int32_t s = lo + row_pos[key(tmp_rows[i])]++;
+        rows_u[s] = tmp_rows[i];
+        vals_u[s] = tmp_vals[i];
+        if (write_wts) wts_u[s] = tmp_wts[i];
+      }
+    }
+  };
+  const unsigned n_sorters = std::min<size_t>(
+      std::max(1u, std::thread::hardware_concurrency()),
+      std::max<size_t>(1, all_runs.size()));
+  pool.clear();
+  for (unsigned i = 0; i < n_sorters; ++i) pool.emplace_back(sorter);
+  for (auto& th : pool) th.join();
 
   // concatenate per-table items in table order; cover the sentinel window
   int64_t n = 0;

@@ -240,10 +240,12 @@ def k2_bisect(
     item_u: torch.Tensor,  # [M] int32
     lr: float,
 ) -> torch.Tensor:
-    """K2's sgd update (fp32 table) with its stages switched as P3's
-    variants: V1 is K2 itself, V2 writes every row of each visited 128-row
-    tile, V3 and V4 are the skeletons (no G row read), V5 and V6 are V4 and
-    V2 with the tile stored by one bulk copy. Returns table, in place."""
+    """The sgd update (fp32 table) of K2's first, tile-per-CTA design with
+    its stages switched as P3's variants: V1 gives K2's bits (both sum each
+    row's hits in slot order from zero), V2 writes every row of each
+    visited 128-row tile, V3 and V4 are the skeletons (no G row read), V5
+    and V6 are V4 and V2 with the tile stored by one bulk copy. Returns
+    table, in place."""
     if variant not in K2_VARIANTS:
         raise ValueError(f"variant must be one of {sorted(K2_VARIANTS)}, "
                          f"got {variant!r}")

@@ -15,7 +15,7 @@ dlrm_tpu/ops/stream_kernels.py: gather_grads and the four Pallas kernels).
   K3 stream_rows        R_u [U, d]: every slot's table row (0 at sentinels),
                         the first half of the streamed forward.
   K4 window_pool        pooled [T, B, d] = the weighted sum of each bag's
-                        R_u rows, the second half.
+                        R_u rows in slot order, the second half.
   stream_embedding_fwd  K3 then K4.
 
 Each kernel is hand-written CUDA C++ for sm_90a in csrc/<name>.cu, built at
@@ -109,15 +109,34 @@ def cast_out(val: torch.Tensor, dtype, sr: bool, seed: int,
 
 
 # ------------------------------------------------------------- plain K2
+def _add_in_rounds(out, index, src) -> None:
+    """out[index[i]] += src[i], each row of out taking its terms in the
+    order of i: round k adds every row's k-th term. Within a round the
+    indices are distinct, so index_add_ adds each row once, with no
+    conflicting writes: the same bits on every run and device."""
+    order = torch.argsort(index, stable=True)
+    counts = torch.bincount(index, minlength=out.shape[0])
+    rank = torch.empty_like(index)
+    rank[order] = (torch.arange(index.numel(), device=index.device)
+                   - (torch.cumsum(counts, 0) - counts)[index[order]])
+    by_round = torch.argsort(rank, stable=True)
+    sizes = torch.bincount(rank).tolist() if rank.numel() else []
+    for sel in torch.split(by_round, sizes):
+        out.index_add_(0, index[sel], src[sel])
+
+
 def _warp_sum(x: torch.Tensor) -> torch.Tensor:
-    """Row sums of x [n, d] in the kernel's order: lane j adds columns j,
-    j+32, ... in turn, then five xor-butterfly rounds combine the lanes."""
+    """Row sums of x [n, d] (x >= 0) in the kernel's order: lane j adds its
+    columns 4j, 4j+1, 4j+2, 4j+3, then 128+4j, ... in turn from zero, then
+    five xor-butterfly rounds combine the lanes. The zero padding past d
+    adds +0 to a sum >= 0, which leaves it unchanged."""
     n, d = x.shape
-    lanes = -(-d // 32) * 32
-    x = torch.nn.functional.pad(x, (0, lanes - d)).view(n, lanes // 32, 32)
-    s = x[:, 0]
-    for i in range(1, lanes // 32):
-        s = s + x[:, i]
+    width = -(-d // 128) * 128
+    x = torch.nn.functional.pad(x, (0, width - d)).view(n, width // 128, 32, 4)
+    s = torch.zeros((n, 32), dtype=x.dtype, device=x.device)
+    for k in range(width // 128):
+        for q in range(4):
+            s = s + x[:, k, :, q]
     lane = torch.arange(32, device=x.device)
     for o in (16, 8, 4, 2, 1):
         s = s + s[:, lane ^ o]
@@ -136,10 +155,10 @@ def stream_update_plain(
     place.
 
     The sums are taken in the kernel's order, so that on the card the two
-    agree to the bit: each row's hits are added in item/slot order (round k
-    adds every row's k-th hit; rows are unique within a round, so index_add_
-    meets no conflicting writes), and rwsadagrad's sum over d follows the
-    kernel's warp (32 lane partials, then an xor butterfly)."""
+    agree to the bit: each row's hits are added in slot order from zero
+    (round k adds every row's k-th hit; rows are unique within a round, so
+    index_add_ meets no conflicting writes), and rwsadagrad's sum over d
+    follows the kernel's warp (_warp_sum)."""
     br = plan.block_rows
     d = table.shape[1]
     dev = table.device
@@ -154,16 +173,9 @@ def stream_update_plain(
     g = g_u[slots[keep]]
     if mm_dtype == torch.bfloat16:
         g = g.to(torch.bfloat16).float()
-    rows, inv, counts = torch.unique(grow, return_inverse=True,
-                                     return_counts=True)
-    order = torch.argsort(inv, stable=True)
-    rank = torch.empty_like(inv)
-    rank[order] = torch.arange(inv.numel(), device=dev) - torch.repeat_interleave(
-        torch.cumsum(counts, 0) - counts, counts)
+    rows, inv = torch.unique(grow, return_inverse=True)
     gs = torch.zeros((rows.numel(), d), dtype=torch.float32, device=dev)
-    for k in range(int(counts.max()) if counts.numel() else 0):
-        sel = (rank == k).nonzero().squeeze(1)
-        gs.index_add_(0, inv[sel], g[sel])
+    _add_in_rounds(gs, inv, g)
     w = table[rows].float()
     sr = bool(stochastic_round) and table.dtype == torch.bfloat16
     if optimizer == "sgd":
@@ -206,7 +218,6 @@ _ENTRY_POINTS = {
     "stream_update": ("stream_update", "k2_stream_update", [
         _I, _I,  # opt, table_bf16
         _P, _P, _P, _P, _P, _P, _P,  # table, acc, g_u, rows_u, item_*
-        _P, _P,  # block_first, block_last scratch
         _I64, _I64,  # m_items, u_total
         _I, _I, _I,  # num_blocks, br, d
         ctypes.c_float, ctypes.c_float, ctypes.c_uint32,  # lr, eps, seed
@@ -221,13 +232,16 @@ _ENTRY_POINTS = {
     ]),
     "window_pool": ("window_pool", "k4_window_pool", [
         _P, _P, _P, _P, _P,  # r_u, vals_u, wts_u, w2t, pooled
-        _I64, _I, _I, _I, _P,  # u_total, batch, d, mm_bf16, stream
+        _P, _P, _P, _P, _P,  # scratch: cnt, loc, tile_sum, list, sorted
+        _I64, _I, _I, _I,  # u_total, tables, batch, d
+        _I, _I, _P,  # tiles, mm_bf16, stream
     ]),
 }
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # headers the sources include: hashed into every library's name
 _HEADERS = ("csrc/u_layout.cuh", "csrc/k2_update.cuh")
+_SCAN_TILE = 2048  # counts per CTA of K4's scan (window_pool.cu kScanTile)
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,6 +331,15 @@ def _check_rows4(name: str, t: torch.Tensor) -> None:
             f"(shape {tuple(t.shape)}, strides {t.stride()})")
 
 
+MAX_ROW_WIDTH = 512  # K2 and K4 hold a row in registers: 16 columns a lane
+
+
+def _check_row_regs(d: int) -> None:
+    if d > MAX_ROW_WIDTH:
+        raise ValueError(f"the kernel holds a row in registers: d = {d} > "
+                         f"{MAX_ROW_WIDTH}")
+
+
 def _mm(x: torch.Tensor, mm_dtype) -> torch.Tensor:
     """x rounded to mm_dtype, as fp32."""
     return x.to(mm_dtype).float()
@@ -342,9 +365,10 @@ def stream_update(
     seed: int = 0,  # SR stream: pass the optimizer step
 ):
     """Returns (table,) for sgd or (table, acc) otherwise — the SAME
-    tensors, updated in place. The items of one block must be contiguous in
-    the item list (build_stream_work and touched_update_items emit them so).
-    lr and seed are host scalars: nothing here waits on the device."""
+    tensors, updated in place. Each hit slot of a block must lie in exactly
+    one of that block's items, in any order (build_stream_work and
+    touched_update_items emit them so). lr and seed are host scalars:
+    nothing here waits on the device."""
     if optimizer not in _OPTIMIZERS:
         raise ValueError(f"optimizer {optimizer!r} not supported")
     _check_mm(mm_dtype)
@@ -375,8 +399,11 @@ def stream_update(
             stochastic_round=stochastic_round, seed=seed,
         )
 
-    scratch = torch.empty((2, max(plan.num_blocks, 1)), dtype=torch.int32,
-                          device=dev)
+    _check_row_regs(d)
+    _check_rows4("table", table)
+    _check_rows4("g_u", g_u)
+    if optimizer == "adagrad":
+        _check_rows4("acc", acc)
     sr = bool(stochastic_round) and table.dtype == torch.bfloat16
     _launch(
         "stream_update", dev,
@@ -384,7 +411,6 @@ def stream_update(
         table.data_ptr(), None if acc is None else acc.data_ptr(),
         g_u.data_ptr(), rows_u.data_ptr(), item_block.data_ptr(),
         item_row0.data_ptr(), item_u.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(),
         m, plan.u_total, plan.num_blocks, plan.block_rows, d,
         float(lr), float(eps), int(seed) & _U32,
         int(mm_dtype == torch.bfloat16), int(sr),
@@ -511,15 +537,24 @@ def stream_rows(
 
 
 # ------------------------------------------------------------------ K4
+@torch.no_grad()
 def window_pool_plain(plan: StreamPlan, r_u, vals_u, wts_u, w2t, *,
                       mm_dtype=torch.float32) -> torch.Tensor:
-    """K4's contract in plain PyTorch: one index_add_ of every slot's
-    mm(weight) * mm(row) into its (table, bag) row of a zeroed output."""
+    """K4's contract in plain PyTorch: each (table, bag) row of a zeroed
+    output gets mm(weight) * mm(row) of its slots of nonzero weight added in
+    ascending slot order (round k adds every bag's k-th slot; bags are
+    unique within a round, so index_add_ meets no conflicting writes and the
+    result is the same on every run, on the card too). A slot of weight 0
+    adds +0 to a sum that is never -0 (for a finite row), so leaving it out
+    changes no bit."""
     t, b, d = len(plan.table_sizes), plan.batch, r_u.shape[1]
-    idx = (w2t.long()[:, None, None] * b + vals_u.long()).reshape(-1)
-    contrib = _mm(r_u, mm_dtype) * _mm(wts_u.reshape(-1, 1), mm_dtype)
+    w = wts_u.reshape(-1)
+    slots = (w != 0).nonzero().squeeze(1)  # ascending
+    bag = (w2t.long().repeat_interleave(WINDOW) * b
+           + vals_u.reshape(-1).long())[slots]
+    contrib = _mm(r_u[slots], mm_dtype) * _mm(w[slots, None], mm_dtype)
     pooled = torch.zeros((t * b, d), dtype=torch.float32, device=r_u.device)
-    pooled.index_add_(0, idx, contrib)
+    _add_in_rounds(pooled, bag, contrib)
     return pooled.view(t, b, d)
 
 
@@ -533,9 +568,9 @@ def window_pool(
     mm_dtype=torch.float32,  # bfloat16: round weight and row to bf16 first
 ) -> torch.Tensor:  # pooled [T, B, d] float32
     """K4: pooled[t, b] = sum of mm(wts_u[u]) * mm(R_u[u]) over table t's
-    slots with vals_u[u] == b, in fp32. On the card the sums are taken with
-    atomic adds, in an order that changes from run to run. No batch limit
-    (the TPU's VMEM guard does not apply)."""
+    slots with vals_u[u] == b, in fp32, in ascending slot order: the plain
+    version's bits, the same on every run. No batch limit (the TPU's VMEM
+    guard does not apply)."""
     _check_mm(mm_dtype)
     _check("r_u", r_u, (torch.float32,))
     d = r_u.shape[1]
@@ -548,11 +583,23 @@ def window_pool(
         return window_pool_plain(plan, r_u, vals_u, wts_u, w2t,
                                  mm_dtype=mm_dtype)
     _check_rows4("r_u", r_u)
+    _check_row_regs(d)
     t, b = len(plan.table_sizes), plan.batch
-    pooled = torch.zeros((t, b, d), dtype=torch.float32, device=dev)
+    pooled = torch.empty((t, b, d), dtype=torch.float32, device=dev)
+    # int32 scratch: per-bag counts and offsets (one extra entry for the
+    # end), the scan's tile totals, the bags' slot lists before and after
+    # sorting
+    n = t * b + 1
+    tiles = -(-n // _SCAN_TILE)
+    scratch = torch.empty(2 * n + tiles + 2 * plan.u_total, dtype=torch.int32,
+                          device=dev)
+    cnt, loc, tile_sum, lists, ordered = torch.split(
+        scratch, [n, n, tiles, plan.u_total, plan.u_total])
     _launch("window_pool", dev, r_u.data_ptr(), vals_u.data_ptr(),
-            wts_u.data_ptr(), w2t.data_ptr(), pooled.data_ptr(), plan.u_total,
-            b, d, int(mm_dtype == torch.bfloat16))
+            wts_u.data_ptr(), w2t.data_ptr(), pooled.data_ptr(),
+            cnt.data_ptr(), loc.data_ptr(), tile_sum.data_ptr(),
+            lists.data_ptr(), ordered.data_ptr(), plan.u_total, t, b, d,
+            tiles, int(mm_dtype == torch.bfloat16))
     return pooled
 
 

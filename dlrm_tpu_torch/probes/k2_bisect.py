@@ -1,21 +1,23 @@
 """P3: which of K2's stages costs its time (the port of
-bench_scripts/k2_bisect.py). Runs the variants of csrc/k2_bisect.cu — K2's
-sgd update on an fp32 table with its stages compiled in or out — at two
-shapes, each on the full cover item list:
+bench_scripts/k2_bisect.py). Runs the variants of csrc/k2_bisect.cu — the
+sgd update on an fp32 table of K2's first, tile-per-CTA design
+(csrc/k2_update.cuh) with its stages compiled in or out — at two shapes,
+each on the full cover item list:
 
   probe      the reference's: 26 tables x 200,000 rows, d 128, batch 2048,
              8 uniform hits per bag, block_rows 2048;
   main-path  the train step's: the same tables, batch 16,384, the ragged
              v2 hot sizes (214 hits per sample), where K2 runs on the card.
 
-  V1  full update, writing only rows that got a hit (= K2, sgd, fp32)
+  V1  full update, writing only rows that got a hit (K2's bits, sgd, fp32)
   V2  full update, writing every row of each visited 128-row tile
   V3  skeleton: scans rows_u, writes the hit rows, reads no G row
   V4  skeleton writing every row of each visited tile: the revolve floor
   V5  V4 with the tile stored by one bulk copy
   V6  V2 with the tile stored by one bulk copy
 
-At each shape it also times K2 itself (stream_update) on a ladder of
+At each shape it also times K2 itself (stream_update, a warp per touched
+row's run of hits) on a ladder of
 configurations from V1's to the train step's, one change per rung:
 
   sgd fp32                  V1's: fp32 table, fp32 G

@@ -14,7 +14,13 @@ sums each block's grads with one-hot matmuls, the port per row in slot
 order); bf16 tables at most 1 bf16 ulp apart at the scale of the update's
 operands, both sides rounding to nearest (JAX interpret mode has no
 stochastic rounding). Stochastic rounding is checked for bias
-statistically."""
+statistically.
+
+The run edge cases (a row whose hits span several items, equal rows on
+both sides of a table boundary, the touched-only list) and the pooling
+edge cases (weight-0 slots, a budgeted table, a bag with every hit dropped,
+a bag hitting one row twice) come from tests/test_torch_cuda_kernels.py,
+which holds the kernels against the plain versions on the same cases."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +30,7 @@ import torch
 from dlrm_tpu.ops import stream_kernels as jk
 from dlrm_tpu_torch.ops import stream_kernels as tk
 from dlrm_tpu_torch.ops import stream_plan as tsp
+from test_torch_cuda_kernels import _pool_case, _run_case
 
 TABLES = (300, 50, 700)
 D = 128
@@ -422,6 +429,56 @@ def test_window_pool_matches_jax(mm, weights):
                          _t(work.w2t), mm_dtype=getattr(torch, mm))
     assert got.shape == (len(TABLES), B, D) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["weight0", "budgeted", "dropped_bag",
+                                  "repeat_row"])
+def test_window_pool_edge_cases_match_jax(case, mm):
+    """The bag-major plain version (each bag's slots of nonzero weight in
+    slot order) against JAX's one-hot pooling over every slot."""
+    plan, work, r_u = _pool_case(case)
+    args = (r_u, work.vals_u, work.wts_u, work.w2t)
+    want = np.asarray(jk.window_pool(
+        plan, *[jnp.asarray(a) for a in args], mm_dtype=getattr(jnp, mm),
+        interpret=True))
+    got = tk.window_pool(plan, *[_t(a) for a in args],
+                         mm_dtype=getattr(torch, mm))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if case == "dropped_bag":  # +0, not -0 or garbage
+        row = got.numpy()[1, 5]
+        assert (row == 0).all() and not np.signbit(row).any()
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "rwsadagrad", "adagrad"])
+@pytest.mark.parametrize("case", ["long_run", "segment_boundary", "touched"])
+def test_plain_stream_update_run_edge_cases_match_jax(case, optimizer):
+    rng, plan, work, dly, table = _run_case(case)
+    acc = _acc(optimizer, plan, rng)
+    g_u = _g_u(dly, work)
+    want = _run_jax(optimizer, plan, table, acc, g_u, work, jnp.float32)
+    got = _run_port(optimizer, plan, table, acc, g_u, work, torch.float32)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6)
+
+
+def test_warp_sum_order():
+    """_warp_sum is the kernel's order: lane j sums its 4 neighbouring
+    columns (per 128) from zero, then the xor butterfly; padding past d
+    changes nothing."""
+    rng = np.random.default_rng(14)
+    for d in (8, 128, 200, 256):
+        x = torch.from_numpy(rng.random((5, d)).astype(np.float32))
+        lanes = np.zeros((5, 32), np.float32)
+        xp = np.pad(x.numpy(), ((0, 0), (0, -(-d // 128) * 128 - d)))
+        for k in range(xp.shape[1] // 128):
+            for q in range(4):
+                lanes = lanes + xp[:, k * 128 + q:(k + 1) * 128:4]
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[:, np.arange(32) ^ o]
+        np.testing.assert_array_equal(tk._warp_sum(x).numpy(), lanes[:, 0])
+        np.testing.assert_allclose(tk._warp_sum(x).numpy(),
+                                   x.double().sum(1).numpy(), rtol=1e-6)
 
 
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])

@@ -1,8 +1,9 @@
 """The port's copies of the stream plan and its builders
 (dlrm_tpu_torch/ops/stream_plan.py, native/stream_work.cc) against
 dlrm_tpu's: the numpy paths give IDENTICAL arrays; the port's native builder
-matches its numpy path up to intra-run slot order (as
-tests/test_stream_kernels.py checks for dlrm_tpu)."""
+gives its numpy path's arrays too (dlrm_tpu's native builder leaves the
+slots of a run in scan order, which tests/test_stream_kernels.py allows for
+it; the port's sorts them by row, as the numpy path does)."""
 
 import dataclasses
 
@@ -120,6 +121,35 @@ def test_native_stream_work_matches_numpy(hot):
     wf = tsp.build_stream_work(plan, _flat(idx, hots), _flat(wt, hots),
                                prefer_native=True)
     _check_work_equal_up_to_run_order(wf, wp)
+
+
+@pytest.mark.parametrize("hot", [H, (2, 1, 2)], ids=["uniform", "ragged"])
+@pytest.mark.parametrize("layout", ["padded", "flat"])
+def test_native_stream_work_identical_to_numpy(hot, layout):
+    """The C++ builder sorts each block's hits by row, stably in scan order,
+    as the numpy path does: the two plans are identical, slot for slot (the
+    port's K2 needs every row's hits in one contiguous run). Rows repeat
+    within and across bags here, so the order of equal rows is tested."""
+    idx, wt, hots = _batch(12, hot)
+    idx //= 4  # about four hits per touched row
+    plan = tsp.make_stream_plan(TABLES, D, B, hot, block_rows=BR)
+    wp = tsp.build_stream_work(plan, idx, wt, prefer_native=False)
+    if layout == "flat":
+        idx, wt = _flat(idx, hots), _flat(wt, hots)
+    _assert_work_identical(
+        tsp.build_stream_work(plan, idx, wt, prefer_native=True), wp)
+
+
+def test_native_budgeted_stream_work_identical_to_numpy():
+    """The same with a budgeted table, whose weight-0 hits are dropped."""
+    idx, wt, _ = _batch(13, H)
+    wt[1][np.random.default_rng(14).random(wt[1].shape) < 0.5] = 0.0
+    budget = [None, int((wt[1] != 0).sum()) + 16, None]
+    plan = tsp.make_stream_plan(TABLES, D, B, H, block_rows=BR,
+                                u_budget=budget)
+    _assert_work_identical(
+        tsp.build_stream_work(plan, idx, wt, prefer_native=True),
+        tsp.build_stream_work(plan, idx, wt, prefer_native=False))
 
 
 def test_mixed_layout_build_routes_off_native():

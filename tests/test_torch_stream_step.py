@@ -8,6 +8,8 @@ atol 1e-5 after the last (dense elements whose Adagrad grads are all at
 rounding level excepted, see _assert_params_close); bf16 tables (round to
 nearest on both sides) loss rtol 0.02 and table rtol 0.05 / atol 0.02."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,7 @@ from dlrm_tpu_torch.bridge import params_from_jax, params_to_jax
 from dlrm_tpu_torch.config import DLRMConfig
 from dlrm_tpu_torch.data.random_data import HostBatch
 from dlrm_tpu_torch.models.dlrm import DLRMModel
-from dlrm_tpu_torch.ops.stream_plan import make_stream_plan
+from dlrm_tpu_torch.ops.stream_plan import StreamWork, make_stream_plan
 from dlrm_tpu_torch.train import stream_step as tstep
 
 KW = dict(
@@ -103,14 +105,20 @@ class Pair:
             grad_impl=grad_impl, device="cpu", **kw)
 
     def batches(self, arrays, flat=False, unit=False, touched=False):
-        """Device batches for both sides from the same numpy arrays."""
+        """Device batches for both sides from the same numpy arrays and one
+        U-layout: dlrm_tpu's builder's, handed to the port as it is. Any
+        order of a block's hits is a valid plan for dlrm_tpu's kernels and
+        the port's plain versions; the port's own builder sorts them by row
+        (its CUDA K2 needs that), which tests/test_torch_stream_plan.py
+        holds equal to both numpy builders."""
         jb, tb = [], []
         fh = self.tplan.hot if flat else None
         for dense, idx, wt, labels in arrays:
             j = JaxHostBatch(dense, idx, wt, labels).with_stream_work(
                 self.jplan, unit_weights=unit, update_touched_only=touched)
-            t = HostBatch(dense, idx, wt, labels).with_stream_work(
-                self.tplan, unit_weights=unit, update_touched_only=touched)
+            t = dataclasses.replace(
+                HostBatch(dense, idx, wt, labels),
+                stream=StreamWork(**vars(j.stream), touched_only=touched))
             jb.append(j.to_device(flat_hots=fh))
             tb.append(t.to_device("cpu", flat_hots=fh))
         return jb, tb
@@ -165,6 +173,32 @@ def test_stream_step_matches_jax(optimizer):
     (jp, js), (tp, ts) = _run_both(pair, jb, tb)
     _assert_params_close(tp, jp, js)
     _assert_close_trees(ts, js, PARAM)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "rwsadagrad", "adagrad"])
+@pytest.mark.parametrize("touched", [False, True], ids=["full", "touched"])
+def test_port_built_batches_give_the_same_step(optimizer, touched):
+    """The port's own builder (each block's hits sorted by row, stably)
+    against dlrm_tpu's (scan order), through the port's gather-path step:
+    K2 adds each row's hits in the same order under both layouts, so the
+    params, accumulators and losses agree to the bit."""
+    pair = Pair(optimizer)
+    arrays = [_arrays(s) for s in range(STEPS)]
+    _, jax_built = pair.batches(arrays, touched=touched)
+    port_built = [HostBatch(*a).with_stream_work(
+        pair.tplan, update_touched_only=touched).to_device("cpu")
+        for a in arrays]
+    outs = []
+    for batches in (jax_built, port_built):
+        tp, ts = pair.port_state()
+        step = pair.port_step()
+        losses = [float(step(tp, ts, b, LR)[2]) for b in batches]
+        outs.append((losses, jax.tree_util.tree_leaves((tp, ts))))
+    (la, xa), (lb, xb) = outs
+    assert la == lb
+    assert len(xa) == len(xb)
+    for x, y in zip(xa, xb):
+        assert torch.equal(torch.as_tensor(x), torch.as_tensor(y))
 
 
 def test_stream_step_ragged_hot_sizes():
