@@ -2,7 +2,8 @@
 kernels, holds each against its plain version, and drives the port's two
 paths of the single-device DLRM-v2 streamed train step at the full width of
 bench.py's configuration: the gather path (K2) and the streamed-forward,
-one-hot-grads path (K3, K4, K1 and K2).
+one-hot-grads path (K3, K4, K1 and K2); then the probes, and the DLRM-v2
+trainer (v2_main.main) from disk and on random data.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -61,19 +62,41 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      on fp32 to the train step's rwsadagrad on bf16), the counts read, and
      the card's copy, revolve, gather and scatter figures and each probe
      kernel's time, plain time, bound and library yardstick.
+  6. the trainer, dlrm_tpu_torch/v2_main.py: (a) processed Criteo days drawn
+     from a numpy seed for bench.py's tables (3 days, 262,144 rows), made
+     multi-hot with V2_HOT_SIZES by materialize_multihot_dataset (224 MB of
+     sparse .npy in a temporary directory of the checkout), then main() at
+     phase 3's width and options through --embedding_impl stream,
+     --embedding_dtype bfloat16 and --adagrad, 12 train steps from the
+     files through the prefetcher, val and test 2 batches each: its own
+     samples/s, loss and AUROC; each step's device span (CUDA events) and
+     synchronizing calls; the spans' share of the loop's device window;
+     peak memory; K2 launched once per step and nothing else; then a
+     separate pass timing the host's read, U-build and H2D per batch, K2 on
+     the first from-disk batch bit for bit against its plain version, and
+     a prefetched batch equal to the synchronous copy. (b) main() on random
+     data through Multihot at batch 1,024, 3 steps.
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
+The whole run takes about 2 minutes on one H100, builds included.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -82,7 +105,12 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from dlrm_tpu_torch import v2_main
 from dlrm_tpu_torch.config import DLRMConfig
+from dlrm_tpu_torch.data.multi_hot_criteo import (
+    MultiHotCriteoDataset,
+    materialize_multihot_dataset,
+)
 from dlrm_tpu_torch.data.random_data import (
     V2_HOT_SIZES,
     HostBatch,
@@ -118,6 +146,7 @@ from dlrm_tpu_torch.probes import (
     stream_variants as p2,
 )
 from dlrm_tpu_torch.probes.common import time_ms
+from dlrm_tpu_torch.train.pipeline import DevicePrefetcher
 from dlrm_tpu_torch.train.stream_step import (
     cast_emb,
     init_stream_opt_state,
@@ -1220,6 +1249,299 @@ def phase_probes():
     return entries
 
 
+# ------------------------------------------------------------- phase 6
+# the v2 trainer (dlrm_tpu_torch/v2_main.py) at bench.py's full width
+V2_TABLES = (200_000,) * 26
+V2_DAY_ROWS = (98_304, 98_304, 65_536)  # 12 train batches; val, test 2 each
+V2_LIMITS = {"train": 12, "val": 2, "test": 2}
+V2_HOST_PASS = 4  # batches in the separate host-timing pass
+
+
+def v2_argv(batch, limits, data_path=None):
+    argv = [
+        "--embedding_dim", "128",
+        "--num_embeddings_per_feature", ",".join(map(str, V2_TABLES)),
+        "--multi_hot_sizes", ",".join(map(str, V2_HOT_SIZES)),
+        "--dense_arch_layer_sizes", "512,256,128",
+        "--over_arch_layer_sizes", "1024,1024,512,256,1",
+        "--adagrad", "--embedding_impl", "stream",
+        "--embedding_dtype", "bfloat16", "--batch_size", str(batch),
+        "--learning_rate", str(LR),
+    ]
+    for stage, n in limits.items():
+        argv += [f"--limit_{stage}_batches", str(n)]
+    if data_path is not None:
+        argv += ["--synthetic_multi_hot_criteo_path", data_path]
+    return argv
+
+
+def write_v2_dataset(root):
+    """Processed Criteo days (y, X_int, X_cat) drawn from a numpy seed for
+    bench.py's 26 x 200,000-row tables, then materialized to the multi-hot
+    layout by the port with V2_HOT_SIZES. The label follows the first
+    dense feature, so that the evaluation has something to rank."""
+    rng = np.random.default_rng(6)
+    days = []
+    for d, n in enumerate(V2_DAY_ROWS):
+        x_int = rng.integers(0, 1000, (n, 13), dtype=np.int32)
+        y = (rng.random(n) < x_int[:, 0] / 1000.0).astype(np.int32)
+        x_cat = rng.integers(0, V2_TABLES[0], (n, 26), dtype=np.int32)
+        path = os.path.join(root, f"day_{d}.npz")
+        np.savez(path, y=y, X_int=x_int, X_cat=x_cat)
+        days.append(path)
+    out = os.path.join(root, "multi_hot")
+    t0 = time.perf_counter()
+    materialize_multihot_dataset(days, out, V2_TABLES, V2_HOT_SIZES)
+    sparse = sum(os.path.getsize(os.path.join(out, f"day_{d}_sparse.npy"))
+                 for d in range(len(days)))
+    log(f"phase 6: {len(days)} days of {V2_DAY_ROWS} rows materialized in "
+        f"{time.perf_counter() - t0:.1f} s ({sparse / 1e6:.0f} MB of sparse "
+        ".npy)")
+    return out
+
+
+class StepProbe:
+    """Wraps the trainer's train step: CUDA events around each call on the
+    current stream, and the synchronizing calls each call makes on the
+    calling thread in sync debug mode (the producer thread's own are not
+    the step's)."""
+
+    def __init__(self):
+        self.spans, self.syncs = [], []
+        self.real = v2_main.make_stream_train_step
+
+    def __enter__(self):
+        def make(*args, **kw):
+            step = self.real(*args, **kw)
+
+            def probed(params, opt_state, batch, lr):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                caught = []
+                ev[0].record()
+                with main_thread_syncs(caught):
+                    out = step(params, opt_state, batch, lr)
+                ev[1].record()
+                self.spans.append(ev)
+                self.syncs.append(caught)
+                return out
+
+            return probed
+
+        v2_main.make_stream_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        v2_main.make_stream_train_step = self.real
+
+
+@contextlib.contextmanager
+def main_thread_syncs(out):
+    """Sync debug mode; each warning raised on this thread is appended to
+    `out` as its first line and the innermost line of the port that made
+    the call."""
+    me = threading.get_ident()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+
+        def show(message, *args, **kw):
+            if threading.get_ident() == me and "prototype" not in str(message):
+                port = [f for f in traceback.extract_stack()
+                        if "dlrm_tpu_torch" in f.filename]
+                where = (f"{port[-1].filename.split('dlrm_tpu_torch')[-1]}:"
+                         f"{port[-1].lineno}" if port else "outside the port")
+                out.append(f"{str(message).splitlines()[0][:60]} at {where}")
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+class Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_v2_main(tag, argv):
+    """v2_main.main(argv) on the card with every launch count set to 0 just
+    before and read just after: its printed output, the step probe, the
+    launch counts and the peak device memory. Fails unless it returns 0
+    with a finite final loss and val and test AUROC in [0, 1]."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tee = Tee(sys.stdout)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with StepProbe() as probe, contextlib.redirect_stdout(tee):
+        rc = v2_main.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = tee.buf.getvalue()
+    check(rc == 0, f"{tag}: v2_main.main returned {rc}")
+    m = re.search(r"Epoch 0: (\d+) samples in \S+ \(([\d,]+) samples/s\), "
+                  r"final loss (\S+)", out)
+    check(m is not None, f"{tag}: no epoch line in the trainer's output")
+    loss = float(m.group(3))
+    check(math.isfinite(loss), f"{tag}: final loss {loss}")
+    auroc = dict(re.findall(r"AUROC over (\w+) set: (\S+)", out))
+    for stage in ("val", "test"):
+        check(stage in auroc, f"{tag}: no {stage} AUROC printed")
+        a = float(auroc[stage])
+        check(0.0 <= a <= 1.0, f"{tag}: {stage} AUROC {a}")
+    steps = len(probe.spans)
+    k2 = launches["stream_update"]
+    check(k2 == steps, f"{tag}: K2 launched {k2} times in {steps} steps")
+    others = {k: v for k, v in launches.items()
+              if v and k != "stream_update"}
+    check(not others, f"{tag}: kernels off this path launched: {others}")
+    log(f"{tag}: main() returned 0 in {wall:.1f} s: {m.group(1)} samples, "
+        f"{m.group(2)} samples/s as main prints it, final loss {loss:.6f}, "
+        f"val AUROC {auroc['val']}, test AUROC {auroc['test']}; K2 launched "
+        f"{k2} times in {steps} train steps; max_memory_allocated {peak} B "
+        f"({peak / 2**30:.2f} GiB)")
+    return probe, steps
+
+
+def report_steps(tag, probe, steps, batch):
+    """Device span per step, the spans' share of the training loop's device
+    window (first step's start to last step's end; and from the second
+    step, past the first step's warm-up, with the samples/s of that
+    window), and the synchronizing calls per step."""
+    spans = [a.elapsed_time(b) for a, b in probe.spans]
+    window = probe.spans[0][0].elapsed_time(probe.spans[-1][1])
+    warm = probe.spans[1][0].elapsed_time(probe.spans[-1][1])
+    syncs = sorted({m for s in probe.syncs for m in s})
+    n_sync = sum(len(s) for s in probe.syncs)
+    per_step = [len(s) for s in probe.syncs]
+    log(f"{tag}: device span per step median {float(np.median(spans)):.2f} "
+        f"ms (min {min(spans):.2f}, max {max(spans):.2f}; first "
+        f"{spans[0]:.2f}); the {steps} steps' spans cover "
+        f"{sum(spans) / window:.1%} of the {window:.1f} ms from the first "
+        f"step's start to the last one's end (steps 2-{steps}: "
+        f"{sum(spans[1:]) / warm:.1%} of {warm:.1f} ms, "
+        f"{(steps - 1) * batch / warm * 1e3:,.0f} samples/s)")
+    log(f"{tag}: synchronizing calls per train step (sync debug mode): "
+        f"{n_sync / steps:.2f} ({n_sync} in {steps} steps: {per_step}; "
+        f"{len(syncs)} distinct)" + "".join(f"\n    {m}" for m in syncs))
+
+
+def v2_host_pass(data_path, plan):
+    """The host's time per batch by stage, in a pass of its own over the
+    trainer's train loader: the padded read, the U-layout build, and the
+    flat per-hit layout with its pinned H2D copies enqueued. Returns the
+    first batch (host and device)."""
+    ds = MultiHotCriteoDataset(data_path, BATCH, days=[0, 1])
+    t = {"read": [], "build": [], "h2d": []}
+    first = None
+    for i in range(V2_HOST_PASS):
+        t0 = time.perf_counter()
+        hb = ds.read_batch(i)
+        t1 = time.perf_counter()
+        hb = hb.with_stream_work(plan, update_touched_only=True)
+        t2 = time.perf_counter()
+        batch = hb.to_device(CUDA, flat_hots=plan.hot)
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        for k, a, b in (("read", t0, t1), ("build", t1, t2), ("h2d", t2, t3)):
+            t[k].append((b - a) * 1e3)
+        if first is None:
+            first = (hb, batch)
+    log(f"phase 6a: host per batch ({V2_HOST_PASS} batches, a separate pass, "
+        "median): " + ", ".join(
+            f"{k} {float(np.median(v)):.1f} ms" for k, v in (
+                ("padded read", t["read"]), ("U-build", t["build"]),
+                ("flat layout + pinned H2D enqueue", t["h2d"])))
+        + f"; in all {sum(float(np.median(v)) for v in t.values()):.1f} ms")
+    return first
+
+
+def phase_v2_trainer():
+    """Phase 6: the trainer from disk at full width (6a), then on random
+    data through Multihot (6b)."""
+    t_phase = time.perf_counter()
+    cfg = DLRMConfig(
+        embedding_dim=128, table_sizes=V2_TABLES, mlp_bot=(13, 512, 256, 128),
+        mlp_top=(1024, 1024, 512, 256, 1), interaction="dot", loss="bce",
+        num_indices_per_lookup=max(V2_HOT_SIZES), compute_dtype="bfloat16")
+    plan = plan_for_model(DLRMModel(cfg), BATCH, hot_sizes=V2_HOT_SIZES)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix=".smoke_data_", dir=root) as tmp:
+        data = write_v2_dataset(tmp)
+        probe, steps = run_v2_main(
+            "phase 6a", v2_argv(BATCH, V2_LIMITS, data))
+        check(steps == V2_LIMITS["train"],
+              f"phase 6a: {steps} train steps, not {V2_LIMITS['train']}")
+        report_steps("phase 6a", probe, steps, BATCH)
+
+        def to_device(hb):  # the trainer's own
+            return hb.with_stream_work(
+                plan, update_touched_only=True).to_device(
+                    CUDA, flat_hots=plan.hot)
+
+        hb, batch = v2_host_pass(data, plan)
+
+        # K2 on the first from-disk batch against its plain version
+        sw = batch.stream
+        check(sw.wts_u is not None and sw.touched_only,
+              "phase 6a: the from-disk batch lacks its weights or list")
+        gen = _gen(40)
+        dly = torch.randn((len(V2_TABLES), BATCH, 128), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        g_u = gather_grads(dly, sw.vals_u, sw.wts_u, sw.w2t)
+        table = (torch.randn((plan.padded_rows, 128), generator=gen,
+                             device="cuda") * 0.05).to(torch.bfloat16)
+        acc = torch.rand((plan.acc_rows, 128), generator=gen,
+                         device="cuda") * 0.1
+        args = (g_u, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u, LR)
+        kw = dict(mm_dtype=torch.bfloat16, stochastic_round=True, seed=13)
+        t_k, a_k = table.clone(), acc.clone()
+        stream_update("rwsadagrad", plan, t_k, a_k, *args, **kw)
+        stream_update_plain("rwsadagrad", plan, table, acc, *args, **kw)
+        torch.cuda.synchronize()
+        compare_update("phase 6a K2, from-disk batch 0", table, t_k, acc, a_k)
+        log("phase 6a: K2 on the first from-disk batch bit-identical to its "
+            "plain version (table and accumulator)")
+        del t_k, a_k, table, acc, g_u, dly
+
+        # a prefetched batch against the same batch copied synchronously
+        hosts = [MultiHotCriteoDataset(data, BATCH, days=[0, 1]).read_batch(i)
+                 for i in range(2)]
+        pre = next(iter(DevicePrefetcher(hosts, to_device, device=CUDA)))
+        same = [torch.equal(pre.dense, batch.dense),
+                torch.equal(pre.idx, batch.idx),
+                torch.equal(pre.wt, batch.wt),
+                torch.equal(pre.labels, batch.labels)] + [
+            torch.equal(getattr(pre.stream, k), getattr(sw, k))
+            for k in ("rows_u", "vals_u", "wts_u", "w2t", "item_block",
+                      "item_row0", "item_u")]
+        check(all(same), f"phase 6a: a prefetched batch differs from the "
+              f"synchronous copy ({same})")
+        log("phase 6a: a prefetched batch (side stream) equals the same batch "
+            "copied synchronously on the current stream, every tensor")
+        del pre, batch, sw, hosts
+
+    probe, steps = run_v2_main(
+        "phase 6b", v2_argv(1024, {"train": 3, "val": 1, "test": 1}))
+    check(steps == 3, f"phase 6b: {steps} train steps, not 3")
+    report_steps("phase 6b", probe, steps, 1024)
+    log(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1231,6 +1553,7 @@ def main() -> int:
         k2 = phase_gather_path()
         new = phase_kernel_path()
         probes = phase_probes()
+        phase_v2_trainer()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

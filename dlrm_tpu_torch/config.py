@@ -1,5 +1,6 @@
-"""Typed model configuration (the port's copy of dlrm_tpu/config.py's
-DLRMConfig and its sub-configs; the port imports nothing of dlrm_tpu).
+"""Typed model and training-run configuration (the port's copy of
+dlrm_tpu/config.py: DLRMConfig, its sub-configs and TrainConfig; the port
+imports nothing of dlrm_tpu).
 
 Mirrors the semantics of the reference CLI surface (dlrm_s_pytorch.py:904-1021 and
 torchrec_dlrm/dlrm_main.py:75-311) as a frozen dataclass with the same derived-shape
@@ -187,3 +188,61 @@ class DLRMConfig:
 
     def replace(self, **kw) -> "DLRMConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-run configuration (flag parity with dlrm_s_pytorch.py run())."""
+
+    mini_batch_size: int = 1
+    test_mini_batch_size: int = -1
+    nepochs: int = 1
+    learning_rate: float = 0.01
+    optimizer: str = "sgd"  # sgd | adagrad | rwsadagrad
+    # Adagrad denominator epsilon; None -> torch default 1e-10 (v2's --eps
+    # passes 1e-8 for torchrec parity, dlrm_main.py:200-205)
+    eps: Optional[float] = None
+    # LR policy (dlrm_s_pytorch.py:169-203)
+    lr_num_warmup_steps: int = 0
+    lr_decay_start_step: int = 0
+    lr_num_decay_steps: int = 0
+    # Data
+    data_generation: str = "random"  # random | synthetic | dataset
+    data_size: int = 1
+    num_batches: int = 0
+    numpy_rand_seed: int = 123
+    round_targets: bool = False
+    num_indices_per_lookup_fixed: bool = False
+    rand_data_dist: str = "uniform"
+    rand_data_min: float = 0.0
+    rand_data_max: float = 1.0
+    rand_data_mu: float = -1.0
+    rand_data_sigma: float = 1.0
+    # Loop control
+    print_freq: int = 1
+    test_freq: int = -1
+    print_time: bool = False
+    print_wall_time: bool = False  # append " (HH:MM)" (dlrm_s_pytorch.py:1655)
+    debug_mode: bool = False
+    grad_accum_iter: int = 1  # --mlperf-grad-accum-iter
+    mlperf_logging: bool = False
+    mlperf_acc_threshold: float = 0.0
+    mlperf_auc_threshold: float = 0.0
+    # Checkpointing
+    save_model: str = ""
+    load_model: str = ""
+    inference_only: bool = False
+
+    @property
+    def eval_batch_size(self) -> int:
+        return (
+            self.test_mini_batch_size
+            if self.test_mini_batch_size > 0
+            else self.mini_batch_size
+        )
+
+    @property
+    def num_train_batches(self) -> int:
+        if self.num_batches > 0:
+            return self.num_batches
+        return int(math.ceil(self.data_size / self.mini_batch_size))

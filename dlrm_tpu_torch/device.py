@@ -23,3 +23,19 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def process_count() -> int:
+    """Processes in this run: torch.distributed's world size once a process
+    group exists, else what the launcher environment says (the JAX
+    package's DLRM_NUM_PROCESSES, or torchrun's WORLD_SIZE), else 1."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    for var in ("DLRM_NUM_PROCESSES", "WORLD_SIZE"):
+        if os.environ.get(var):
+            return int(os.environ[var])
+    return 1

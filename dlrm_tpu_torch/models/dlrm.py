@@ -84,7 +84,10 @@ class DLRMModel:
         step can differentiate with respect to the pooled activations
         instead of the table. The top MLP's last layer stays linear and
         gives fp32 logits; the sigmoid is applied to them
-        (dlrm_s_pytorch.py:1293)."""
+        (dlrm_s_pytorch.py:1293). Its operands keep the compute dtype's
+        values, but the product is taken in fp32, as the JAX package's
+        preferred_element_type=float32 does: a bf16 product would round
+        every logit to 8 bits and tie the eval scores that AUROC ranks."""
         self._check_supported()
         cfg = self.cfg
         dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -93,7 +96,8 @@ class DLRMModel:
         z = dot_interaction(x, ly.to(x.dtype), cfg.interaction_itself)
         hidden = apply_mlp(params["top"][:-1], z, sigmoid_layer=-1)
         last = params["top"][-1]
-        logits = torch.matmul(hidden, last["w"].to(hidden.dtype)).float() + last["b"]
+        w = last["w"].to(hidden.dtype)
+        logits = torch.matmul(hidden.float(), w.float()) + last["b"]
         p = torch.sigmoid(logits)
         if 0.0 < cfg.loss_threshold < 1.0:
             p = torch.clamp(p, cfg.loss_threshold, 1.0 - cfg.loss_threshold)

@@ -79,11 +79,13 @@ def test_default_device_entry_points_raise_without_cuda():
         scan_probe,
         stream_variants,
     )
+    from dlrm_tpu_torch.train.pipeline import DevicePrefetcher
     from dlrm_tpu_torch.train.stream_step import (
         make_stream_eval_step,
         make_stream_train_step,
         plan_for_model,
     )
+    from dlrm_tpu_torch.v2_main import main as v2_main
 
     cfg = DLRMConfig(embedding_dim=8, table_sizes=(20, 30), mlp_bot=(4, 8),
                      mlp_top=(8, 1), loss="bce", num_indices_per_lookup=2)
@@ -98,6 +100,12 @@ def test_default_device_entry_points_raise_without_cuda():
         lambda: hb.to_device(),
         lambda: make_stream_train_step(model, "sgd", plan),
         lambda: make_stream_eval_step(model, plan),
+        lambda: DevicePrefetcher([hb], lambda x: x, device="cuda"),
+        # the trainer, before it draws a batch
+        lambda: v2_main(["--batch_size", "4", "--embedding_dim", "8",
+                         "--num_embeddings", "16",
+                         "--dense_arch_layer_sizes", "8",
+                         "--over_arch_layer_sizes", "4,1"]),
         # the probes time the card
         scan_probe.main, pallas_probe.main, stream_variants.main,
         revolve_probe.main, k2_bisect.main, kernel_feasibility.main,
