@@ -2,8 +2,11 @@
 kernels, holds each against its plain version, and drives the port's two
 paths of the single-device DLRM-v2 streamed train step at the full width of
 bench.py's configuration: the gather path (K2) and the streamed-forward,
-one-hot-grads path (K3, K4, K1 and K2); then the probes, and the DLRM-v2
-trainer (v2_main.main) from disk and on random data.
+one-hot-grads path (K3, K4, K1 and K2); then the probes, the DLRM-v2
+trainer (v2_main.main) from disk and on random data, and the trainer's
+other single-device paths: the fused coalesce+scatter step (coalesce_rows
+and row_scatter_add) that --embedding_impl auto picks on large tables, the
+dense autograd step, and weighted pooling on the stream path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -76,8 +79,27 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      the first from-disk batch bit for bit against its plain version, and
      a prefetched batch equal to the synchronous copy. (b) main() on random
      data through Multihot at batch 1,024, 3 steps.
-The last two lines are the kernels JSON and {"ok": true, "device": ...}.
-The whole run takes about 2 minutes on one H100, builds included.
+  7. the trainer's other single-device paths. C1: each bf16 layer of the
+     v2 dense tower rounds once (its fp32 sum plus the bias, bit for bit;
+     within the accumulation bound of an fp32 recompute). (a) 3 days drawn
+     at the Criteo Kaggle counts (33.76 M rows, 17.3 GB of fp32 tables) and
+     materialized with V2_HOT_SIZES, then main() with --embedding_impl
+     auto, the MLPerf DLRM-v2 DCN (3 layers, rank 512), --adagrad, batch
+     16,384, 12 steps and 2 + 2 eval batches: auto must choose the fused
+     step; coalesce_rows and row_scatter_add launched once per step and
+     nothing else; 0 synchronizing calls past the first step; then both
+     kernels on the first from-disk batch against their plain versions,
+     bit for bit, timed beside them, their bounds and library yardsticks;
+     the fused step twice from the same state, the same bits; its profile.
+     On phase 6's days: (b) the dense step with the projection interaction
+     (no kernel of the port), (c) the stream path with bf16 tables and
+     learned v_w (K2 once per step), each with 0 syncs past the first step;
+     (d) one fused and one dense step from the same params within atol
+     3e-6, and the dense step's profile.
+The last two lines are the kernels JSON (14 kernels: phase 7 adds
+coalesce_rows and row_scatter_add at the fused step's shape) and
+{"ok": true, "device": ...}. The whole run takes about 2.5 minutes on one
+H100, builds included.
 """
 
 from __future__ import annotations
@@ -106,7 +128,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dlrm_tpu_torch import v2_main
-from dlrm_tpu_torch.config import DLRMConfig
+from dlrm_tpu_torch.config import DCNConfig, DLRMConfig
+from dlrm_tpu_torch.configs.presets import CRITEO_KAGGLE_COUNTS
 from dlrm_tpu_torch.data.multi_hot_criteo import (
     MultiHotCriteoDataset,
     materialize_multihot_dataset,
@@ -118,7 +141,9 @@ from dlrm_tpu_torch.data.random_data import (
 )
 from dlrm_tpu_torch.models.dlrm import DLRMModel
 from dlrm_tpu_torch.native import stream_native
+from dlrm_tpu_torch.ops import mlp
 from dlrm_tpu_torch.ops import probe_kernels as pk
+from dlrm_tpu_torch.ops import sparse_update as su
 from dlrm_tpu_torch.ops.stream_kernels import (
     LAUNCHES,
     gather_grads,
@@ -145,8 +170,11 @@ from dlrm_tpu_torch.probes import (
     scan_probe as p1,
     stream_variants as p2,
 )
+from dlrm_tpu_torch.optim.optimizers import init_opt_state, tree_leaves
 from dlrm_tpu_torch.probes.common import time_ms
+from dlrm_tpu_torch.train.fused_step import make_fused_train_step
 from dlrm_tpu_torch.train.pipeline import DevicePrefetcher
+from dlrm_tpu_torch.train.step import make_train_step
 from dlrm_tpu_torch.train.stream_step import (
     cast_emb,
     init_stream_opt_state,
@@ -225,7 +253,7 @@ def phase_build():
         r = fn()
         return r, time.perf_counter() - t0
 
-    sources = KERNELS + pk.SOURCES
+    sources = KERNELS + pk.SOURCES + su.SOURCES
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as ex:
         builds = {k: ex.submit(timed, functools.partial(kernel_library, k))
                   for k in sources}
@@ -1257,15 +1285,18 @@ V2_LIMITS = {"train": 12, "val": 2, "test": 2}
 V2_HOST_PASS = 4  # batches in the separate host-timing pass
 
 
-def v2_argv(batch, limits, data_path=None):
+STREAM_BF16 = ("--embedding_impl", "stream", "--embedding_dtype", "bfloat16")
+
+
+def v2_argv(batch, limits, data_path=None, tables=V2_TABLES,
+            path=STREAM_BF16):
     argv = [
         "--embedding_dim", "128",
-        "--num_embeddings_per_feature", ",".join(map(str, V2_TABLES)),
+        "--num_embeddings_per_feature", ",".join(map(str, tables)),
         "--multi_hot_sizes", ",".join(map(str, V2_HOT_SIZES)),
         "--dense_arch_layer_sizes", "512,256,128",
         "--over_arch_layer_sizes", "1024,1024,512,256,1",
-        "--adagrad", "--embedding_impl", "stream",
-        "--embedding_dtype", "bfloat16", "--batch_size", str(batch),
+        "--adagrad", *path, "--batch_size", str(batch),
         "--learning_rate", str(LR),
     ]
     for stage, n in limits.items():
@@ -1275,40 +1306,43 @@ def v2_argv(batch, limits, data_path=None):
     return argv
 
 
-def write_v2_dataset(root):
+def write_v2_dataset(root, tables=V2_TABLES, tag="phase 6"):
     """Processed Criteo days (y, X_int, X_cat) drawn from a numpy seed for
-    bench.py's 26 x 200,000-row tables, then materialized to the multi-hot
-    layout by the port with V2_HOT_SIZES. The label follows the first
-    dense feature, so that the evaluation has something to rank."""
+    the given tables (bench.py's 26 x 200,000 rows by default), then
+    materialized to the multi-hot layout by the port with V2_HOT_SIZES. The
+    label follows the first dense feature, so that the evaluation has
+    something to rank."""
     rng = np.random.default_rng(6)
+    high = tables[0] if len(set(tables)) == 1 else np.asarray(tables)
     days = []
     for d, n in enumerate(V2_DAY_ROWS):
         x_int = rng.integers(0, 1000, (n, 13), dtype=np.int32)
         y = (rng.random(n) < x_int[:, 0] / 1000.0).astype(np.int32)
-        x_cat = rng.integers(0, V2_TABLES[0], (n, 26), dtype=np.int32)
+        x_cat = rng.integers(0, high, (n, 26), dtype=np.int32)
         path = os.path.join(root, f"day_{d}.npz")
         np.savez(path, y=y, X_int=x_int, X_cat=x_cat)
         days.append(path)
     out = os.path.join(root, "multi_hot")
     t0 = time.perf_counter()
-    materialize_multihot_dataset(days, out, V2_TABLES, V2_HOT_SIZES)
+    materialize_multihot_dataset(days, out, tables, V2_HOT_SIZES)
     sparse = sum(os.path.getsize(os.path.join(out, f"day_{d}_sparse.npy"))
                  for d in range(len(days)))
-    log(f"phase 6: {len(days)} days of {V2_DAY_ROWS} rows materialized in "
+    log(f"{tag}: {len(days)} days of {V2_DAY_ROWS} rows materialized in "
         f"{time.perf_counter() - t0:.1f} s ({sparse / 1e6:.0f} MB of sparse "
         ".npy)")
     return out
 
 
 class StepProbe:
-    """Wraps the trainer's train step: CUDA events around each call on the
-    current stream, and the synchronizing calls each call makes on the
-    calling thread in sync debug mode (the producer thread's own are not
-    the step's)."""
+    """Wraps the trainer's train step (the one its `factory` builds): CUDA
+    events around each call on the current stream, and the synchronizing
+    calls each call makes on the calling thread in sync debug mode (the
+    producer thread's own are not the step's)."""
 
-    def __init__(self):
+    def __init__(self, factory="make_stream_train_step"):
         self.spans, self.syncs = [], []
-        self.real = v2_main.make_stream_train_step
+        self.factory = factory
+        self.real = getattr(v2_main, factory)
 
     def __enter__(self):
         def make(*args, **kw):
@@ -1328,11 +1362,11 @@ class StepProbe:
 
             return probed
 
-        v2_main.make_stream_train_step = make
+        setattr(v2_main, self.factory, make)
         return self
 
     def __exit__(self, *exc):
-        v2_main.make_stream_train_step = self.real
+        setattr(v2_main, self.factory, self.real)
 
 
 @contextlib.contextmanager
@@ -1374,18 +1408,22 @@ class Tee(io.TextIOBase):
         self.out.flush()
 
 
-def run_v2_main(tag, argv):
+def run_v2_main(tag, argv, factory="make_stream_train_step",
+                per_step=("stream_update",)):
     """v2_main.main(argv) on the card with every launch count set to 0 just
-    before and read just after: its printed output, the step probe, the
-    launch counts and the peak device memory. Fails unless it returns 0
-    with a finite final loss and val and test AUROC in [0, 1]."""
+    before and read just after: its printed output, the step probe (around
+    the step that `factory` builds), the launch counts and the peak device
+    memory. Fails unless it returns 0 with a finite final loss and val and
+    test AUROC in [0, 1], each kernel of `per_step` launched once per train
+    step and no other kernel launched. Returns the probe, the step count and
+    the printed output."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tee = Tee(sys.stdout)
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    with StepProbe() as probe, contextlib.redirect_stdout(tee):
+    with StepProbe(factory) as probe, contextlib.redirect_stdout(tee):
         rc = v2_main.main(argv)
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -1404,17 +1442,19 @@ def run_v2_main(tag, argv):
         a = float(auroc[stage])
         check(0.0 <= a <= 1.0, f"{tag}: {stage} AUROC {a}")
     steps = len(probe.spans)
-    k2 = launches["stream_update"]
-    check(k2 == steps, f"{tag}: K2 launched {k2} times in {steps} steps")
-    others = {k: v for k, v in launches.items()
-              if v and k != "stream_update"}
+    for k in per_step:
+        check(launches[k] == steps,
+              f"{tag}: {k} launched {launches[k]} times in {steps} steps")
+    others = {k: v for k, v in launches.items() if v and k not in per_step}
     check(not others, f"{tag}: kernels off this path launched: {others}")
     log(f"{tag}: main() returned 0 in {wall:.1f} s: {m.group(1)} samples, "
         f"{m.group(2)} samples/s as main prints it, final loss {loss:.6f}, "
-        f"val AUROC {auroc['val']}, test AUROC {auroc['test']}; K2 launched "
-        f"{k2} times in {steps} train steps; max_memory_allocated {peak} B "
+        f"val AUROC {auroc['val']}, test AUROC {auroc['test']}; "
+        + (", ".join(f"{k} launched {launches[k]} times" for k in per_step)
+           or "no kernel of the port launched")
+        + f" in {steps} train steps; max_memory_allocated {peak} B "
         f"({peak / 2**30:.2f} GiB)")
-    return probe, steps
+    return probe, steps, out
 
 
 def report_steps(tag, probe, steps, batch):
@@ -1470,76 +1510,321 @@ def v2_host_pass(data_path, plan):
     return first
 
 
-def phase_v2_trainer():
-    """Phase 6: the trainer from disk at full width (6a), then on random
-    data through Multihot (6b)."""
+def phase_v2_trainer(data):
+    """Phase 6: the trainer from disk at full width (6a; the days written
+    to `data` by write_v2_dataset), then on random data through Multihot
+    (6b)."""
     t_phase = time.perf_counter()
     cfg = DLRMConfig(
         embedding_dim=128, table_sizes=V2_TABLES, mlp_bot=(13, 512, 256, 128),
         mlp_top=(1024, 1024, 512, 256, 1), interaction="dot", loss="bce",
         num_indices_per_lookup=max(V2_HOT_SIZES), compute_dtype="bfloat16")
     plan = plan_for_model(DLRMModel(cfg), BATCH, hot_sizes=V2_HOT_SIZES)
-    root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix=".smoke_data_", dir=root) as tmp:
-        data = write_v2_dataset(tmp)
-        probe, steps = run_v2_main(
-            "phase 6a", v2_argv(BATCH, V2_LIMITS, data))
-        check(steps == V2_LIMITS["train"],
-              f"phase 6a: {steps} train steps, not {V2_LIMITS['train']}")
-        report_steps("phase 6a", probe, steps, BATCH)
+    probe, steps, _ = run_v2_main(
+        "phase 6a", v2_argv(BATCH, V2_LIMITS, data))
+    check(steps == V2_LIMITS["train"],
+          f"phase 6a: {steps} train steps, not {V2_LIMITS['train']}")
+    report_steps("phase 6a", probe, steps, BATCH)
 
-        def to_device(hb):  # the trainer's own
-            return hb.with_stream_work(
-                plan, update_touched_only=True).to_device(
-                    CUDA, flat_hots=plan.hot)
+    def to_device(hb):  # the trainer's own
+        return hb.with_stream_work(
+            plan, update_touched_only=True).to_device(
+                CUDA, flat_hots=plan.hot)
 
-        hb, batch = v2_host_pass(data, plan)
+    hb, batch = v2_host_pass(data, plan)
 
-        # K2 on the first from-disk batch against its plain version
-        sw = batch.stream
-        check(sw.wts_u is not None and sw.touched_only,
-              "phase 6a: the from-disk batch lacks its weights or list")
-        gen = _gen(40)
-        dly = torch.randn((len(V2_TABLES), BATCH, 128), generator=gen,
-                          device="cuda").to(torch.bfloat16)
-        g_u = gather_grads(dly, sw.vals_u, sw.wts_u, sw.w2t)
-        table = (torch.randn((plan.padded_rows, 128), generator=gen,
-                             device="cuda") * 0.05).to(torch.bfloat16)
-        acc = torch.rand((plan.acc_rows, 128), generator=gen,
-                         device="cuda") * 0.1
-        args = (g_u, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u, LR)
-        kw = dict(mm_dtype=torch.bfloat16, stochastic_round=True, seed=13)
-        t_k, a_k = table.clone(), acc.clone()
-        stream_update("rwsadagrad", plan, t_k, a_k, *args, **kw)
-        stream_update_plain("rwsadagrad", plan, table, acc, *args, **kw)
-        torch.cuda.synchronize()
-        compare_update("phase 6a K2, from-disk batch 0", table, t_k, acc, a_k)
-        log("phase 6a: K2 on the first from-disk batch bit-identical to its "
-            "plain version (table and accumulator)")
-        del t_k, a_k, table, acc, g_u, dly
+    # K2 on the first from-disk batch against its plain version
+    sw = batch.stream
+    check(sw.wts_u is not None and sw.touched_only,
+          "phase 6a: the from-disk batch lacks its weights or list")
+    gen = _gen(40)
+    dly = torch.randn((len(V2_TABLES), BATCH, 128), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    g_u = gather_grads(dly, sw.vals_u, sw.wts_u, sw.w2t)
+    table = (torch.randn((plan.padded_rows, 128), generator=gen,
+                         device="cuda") * 0.05).to(torch.bfloat16)
+    acc = torch.rand((plan.acc_rows, 128), generator=gen,
+                     device="cuda") * 0.1
+    args = (g_u, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u, LR)
+    kw = dict(mm_dtype=torch.bfloat16, stochastic_round=True, seed=13)
+    t_k, a_k = table.clone(), acc.clone()
+    stream_update("rwsadagrad", plan, t_k, a_k, *args, **kw)
+    stream_update_plain("rwsadagrad", plan, table, acc, *args, **kw)
+    torch.cuda.synchronize()
+    compare_update("phase 6a K2, from-disk batch 0", table, t_k, acc, a_k)
+    log("phase 6a: K2 on the first from-disk batch bit-identical to its "
+        "plain version (table and accumulator)")
+    del t_k, a_k, table, acc, g_u, dly
 
-        # a prefetched batch against the same batch copied synchronously
-        hosts = [MultiHotCriteoDataset(data, BATCH, days=[0, 1]).read_batch(i)
-                 for i in range(2)]
-        pre = next(iter(DevicePrefetcher(hosts, to_device, device=CUDA)))
-        same = [torch.equal(pre.dense, batch.dense),
-                torch.equal(pre.idx, batch.idx),
-                torch.equal(pre.wt, batch.wt),
-                torch.equal(pre.labels, batch.labels)] + [
-            torch.equal(getattr(pre.stream, k), getattr(sw, k))
-            for k in ("rows_u", "vals_u", "wts_u", "w2t", "item_block",
-                      "item_row0", "item_u")]
-        check(all(same), f"phase 6a: a prefetched batch differs from the "
-              f"synchronous copy ({same})")
-        log("phase 6a: a prefetched batch (side stream) equals the same batch "
-            "copied synchronously on the current stream, every tensor")
-        del pre, batch, sw, hosts
+    # a prefetched batch against the same batch copied synchronously
+    hosts = [MultiHotCriteoDataset(data, BATCH, days=[0, 1]).read_batch(i)
+             for i in range(2)]
+    pre = next(iter(DevicePrefetcher(hosts, to_device, device=CUDA)))
+    same = [torch.equal(pre.dense, batch.dense),
+            torch.equal(pre.idx, batch.idx),
+            torch.equal(pre.wt, batch.wt),
+            torch.equal(pre.labels, batch.labels)] + [
+        torch.equal(getattr(pre.stream, k), getattr(sw, k))
+        for k in ("rows_u", "vals_u", "wts_u", "w2t", "item_block",
+                  "item_row0", "item_u")]
+    check(all(same), f"phase 6a: a prefetched batch differs from the "
+          f"synchronous copy ({same})")
+    log("phase 6a: a prefetched batch (side stream) equals the same batch "
+        "copied synchronously on the current stream, every tensor")
+    del pre, batch, sw, hosts
 
-    probe, steps = run_v2_main(
+    probe, steps, _ = run_v2_main(
         "phase 6b", v2_argv(1024, {"train": 3, "val": 1, "test": 1}))
     check(steps == 3, f"phase 6b: {steps} train steps, not 3")
     report_steps("phase 6b", probe, steps, 1024)
     log(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------- phase 7
+# the trainer's other single-device paths: the fused step that
+# --embedding_impl auto picks at the Criteo Kaggle counts (7a), the dense
+# autograd step (7b), weighted pooling on the stream path (7c), the fused
+# step against the dense one (7d), and the bf16 tower's one rounding (C1)
+KAGGLE = tuple(CRITEO_KAGGLE_COUNTS)
+DCN = ("--interaction_type", "dcn", "--dcn_num_layers", "3",
+       "--dcn_low_rank_dim", "512")
+
+
+def dcn_model(tables):
+    """The MLPerf DLRM-v2 DCN model as the trainer builds it from DCN."""
+    return DLRMModel(DLRMConfig(
+        embedding_dim=128, table_sizes=tables, mlp_bot=(13, 512, 256, 128),
+        mlp_top=(1024, 1024, 512, 256, 1), interaction="dcn",
+        dcn=DCNConfig(3, 512), loss="bce",
+        num_indices_per_lookup=max(V2_HOT_SIZES), compute_dtype="bfloat16"))
+
+
+def bf16_ulps(a, b):
+    """|a - b| counted in bf16 steps (adjacent bf16 numbers differ by 1)."""
+    def order(x):
+        v = x.view(torch.int16).int()
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+    return (order(a) - order(b)).abs()
+
+
+def phase_c1_tower():
+    """Each bf16 layer of the v2 dense tower (random weights, batch 16,384)
+    rounds once: its output is its own fp32 sum plus the bias rounded to
+    bf16, bit for bit. Against an fp32 recompute (x.float() @ w.float() +
+    b, TF32 off): the two fp32 sums agree within the accumulation bound
+    of the two sums (k * 2^-22 of the sum of |terms|, k * 2^-23 each; the
+    tensor cores align and truncate their addends), and where they are
+    bit-equal the outputs are too."""
+    gen = _gen(70)
+    widths = (13, 512, 256, 128)
+    x = (torch.randn((BATCH, 13), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    for i, layer in enumerate(mlp.init_mlp(gen, widths, CUDA)):
+        pre = mlp.matmul_f32(x, layer["w"], layer["b"])
+        out = mlp.apply_mlp([layer], x)
+        check(torch.equal(out, torch.relu(pre.to(torch.bfloat16))),
+              f"phase 7 C1 layer {i}: not one rounding of its fp32 sum")
+        w16 = layer["w"].to(torch.bfloat16).float()
+        ref = x.float() @ w16 + layer["b"]
+        scale = x.float().abs() @ w16.abs() + layer["b"].abs()
+        rel = float(((pre - ref).abs() / scale).max())
+        ref_out = torch.relu(ref.to(torch.bfloat16))
+        same = pre.view(torch.int32) == ref.view(torch.int32)
+        ulps = bf16_ulps(out, ref_out)
+        k = widths[i]
+        check(rel <= k * 2.0**-22 and not bool(ulps[same].any()),
+              f"phase 7 C1 layer {i}: fp32 sums {rel:.3e} of their terms "
+              f"apart (bound {k * 2.0**-22:.3e}); "
+              f"{int((ulps[same] > 0).sum())} outputs differ where they agree")
+        log(f"phase 7 C1: layer {widths[i]}->{widths[i + 1]}: one rounding "
+            f"of its fp32 sum on every element; against the fp32 recompute "
+            f"the fp32 sums within {rel:.3e} of the sum of |terms| (bound "
+            f"{k * 2.0**-22:.3e}), {float(same.float().mean()):.4%} of them "
+            f"bit-equal, {float((ulps == 0).float().mean()):.4%} of the "
+            f"outputs bit-equal (the rest up to {int(ulps.max())} bf16 ulp, "
+            "near zero)")
+        x = out
+
+
+def check_no_late_syncs(tag, probe):
+    late = [len(s) for s in probe.syncs[1:]]
+    check(not any(late), f"{tag}: synchronizing calls past the first step: "
+          f"{late}")
+
+
+def fused_kernels_vs_plain(data, model, launches):
+    """The fused step's two kernels on the first from-disk batch of 7a's
+    data and a random cotangent: each against its plain version, bit for
+    bit, then its time, its plain version's, its bound and its library
+    yardstick (coalesce_rows: one F.embedding_bag over the sorted hits
+    with the runs as bags; row_scatter_add: one index_add_ of the touched
+    rows)."""
+    hb = MultiHotCriteoDataset(data, BATCH, days=[0, 1]).read_batch(0)
+    batch = hb.to_device(CUDA, flat_hots=V2_HOT_SIZES)
+    gen = _gen(71)
+    t, d = len(KAGGLE), 128
+    dly = torch.randn((BATCH * t, d), generator=gen, device="cuda") * 1e-3
+    rows, bag, wt = su.hit_rows(batch.idx, batch.wt, model.offsets(CUDA),
+                                BATCH, V2_HOT_SIZES)
+    r_s, seg, bag_s, w_s = su.sorted_hits(rows, bag, wt)
+    n, total = r_s.numel(), model.total_rows
+    G, urows = su.coalesce_rows(r_s, seg, bag_s, w_s, dly, total)
+    G_p, urows_p = su.coalesce_rows_plain(r_s, seg, bag_s, w_s, dly, total)
+    err_c = _held("phase 7a coalesce_rows", G, G_p)
+    check(torch.equal(urows, urows_p), "phase 7a coalesce_rows: rows differ")
+    del G_p, urows_p
+    runs = int(seg[-1]) + 1
+    longest = int(torch.bincount(seg).max())
+    head = torch.ones(n, dtype=torch.bool, device="cuda")
+    head[1:] = r_s[1:] != r_s[:-1]
+    starts = torch.nonzero(head).flatten().int()
+
+    def library():
+        return F.embedding_bag(bag_s, dly, starts, mode="sum",
+                               per_sample_weights=w_s)
+
+    lib_err = float((library() - G[:runs]).abs().max())
+    ms = time_ms(lambda: su.coalesce_rows(r_s, seg, bag_s, w_s, dly, total),
+                 CUDA, 10)
+    plain_ms = time_ms(lambda: su.coalesce_rows_plain(
+        r_s, seg, bag_s, w_s, dly, total), CUDA, 1)
+    lib_ms = time_ms(library, CUDA, 10)
+    log(f"phase 7a: coalesce_rows on the first from-disk batch ({n} hits, "
+        f"{runs} touched rows, the longest run {longest} hits) "
+        f"bit-identical to its plain version; F.embedding_bag over the same "
+        f"runs within {lib_err:.3e}")
+    # bytes: rows, runs, bags and weights read once, every dly row once,
+    # G and the row ids written once; operations: a multiply (weights
+    # present) and an add per hit element
+    weighted = w_s is not None
+    entries = [kernel_entry(
+        "coalesce_rows", "dlrm_tpu_torch/csrc/coalesce_rows.cu",
+        "dlrm_tpu/ops/sparse_update.py:87", launches, err_c, ms, plain_ms,
+        (16 if weighted else 12) * n + dly.numel() * 4 + n * d * 4 + 4 * n,
+        (2 if weighted else 1) * n * d, lib_ms)]
+
+    valid = torch.arange(n, device="cuda") < runs
+    delta = ((-LR * G) * valid[:, None]).contiguous()
+    del G
+    table = torch.randn((total, d), generator=gen, device="cuda") * 0.05
+    t_k = table.clone()
+    pk.row_scatter_add_(t_k, urows, delta)
+    pk.row_scatter_add_plain(table, urows, delta)
+    torch.cuda.synchronize()
+    check(torch.equal(t_k, table),
+          "phase 7a row_scatter_add: the table differs from the plain "
+          "version's")
+    del t_k
+    log(f"phase 7a: row_scatter_add of the coalesced triple ({n} slots, "
+        f"{n - runs} past the table) into the {total}-row fp32 table "
+        "bit-identical to its plain version")
+    uv, dv = urows[:runs].long(), delta[:runs]
+    ms = time_ms(lambda: pk.row_scatter_add_(table, urows, delta), CUDA, 10)
+    plain_ms = time_ms(lambda: pk.row_scatter_add_plain(table, urows, delta),
+                       CUDA, 3)
+    lib_ms = time_ms(lambda: table.index_add_(0, uv, dv), CUDA, 10)
+    # bytes: the row ids, each touched row's delta read, its table row read
+    # and written; operations: one add per touched element
+    entries.append(kernel_entry(
+        "row_scatter_add (fused step)", "dlrm_tpu_torch/csrc/probe_rows.cu",
+        "bench_scripts/pallas_probe.py:141", launches, 0.0, ms, plain_ms,
+        4 * n + 3 * runs * d * 4, runs * d, lib_ms))
+    del table, delta
+    return batch, entries
+
+
+def same_bits_twice(model, batch):
+    """Two fused steps from the same init on the same batch: every
+    parameter and accumulator bit-equal. Then the step's profile."""
+    outs = []
+    step = make_fused_train_step(model, "rwsadagrad", eps=1e-8,
+                                 hot_sizes=V2_HOT_SIZES)
+    for _ in range(2):
+        p = model.init_params(seed=0, device=CUDA)
+        s = init_opt_state("rwsadagrad", p)
+        step(p, s, batch, LR)
+        outs.append(tree_leaves((p, s["accum"])))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*outs)),
+          "phase 7a: a repeated fused step gives other bits")
+    log(f"phase 7a: the fused step twice from the same state on the same "
+        f"batch: all {len(outs[0])} parameter and accumulator tensors "
+        "bit-equal")
+    del outs
+    profile_steps("phase 7a", step, p, s, batch)
+
+
+def fused_vs_dense(data):
+    """7d: one full-width batch of phase 6's data, the 7a model on its 26 x
+    200,000 tables, one fused and one dense step from the same params:
+    every parameter and accumulator within atol 3e-6."""
+    model = dcn_model(V2_TABLES)
+    hb = MultiHotCriteoDataset(data, BATCH, days=[0, 1]).read_batch(0)
+    batch = hb.to_device(CUDA, flat_hots=V2_HOT_SIZES)
+    outs, losses = [], []
+    for make in (make_fused_train_step, make_train_step):
+        p = model.init_params(seed=0, device=CUDA)
+        s = init_opt_state("rwsadagrad", p)
+        step = make(model, "rwsadagrad", eps=1e-8, hot_sizes=V2_HOT_SIZES)
+        _, _, loss, _ = step(p, s, batch, LR)
+        losses.append(float(loss))
+        outs.append(tree_leaves((p, s["accum"])))
+    errs = [float((a - b).abs().max()) for a, b in zip(*outs)]
+    del outs
+    profile_steps("phase 7d dense step", step, p, s, batch)
+    check(max(errs) <= 3e-6 and math.isclose(*losses, rel_tol=1e-6),
+          f"phase 7d: fused and dense steps differ (max abs {max(errs):.3e}, "
+          f"losses {losses})")
+    log(f"phase 7d: one full-width step, fused against dense: losses "
+        f"{losses[0]:.6f} and {losses[1]:.6f}, {len(errs)} tensors within "
+        f"{max(errs):.3e} (atol 3e-6)")
+
+
+def phase_other_paths(root, data_v2):
+    """Phase 7: C1 on the card; then 7a, the fused step at the Criteo
+    Kaggle counts from its own days (a directory under `root`); 7b and 7c
+    on phase 6's days `data_v2`; 7d."""
+    t_phase = time.perf_counter()
+    phase_c1_tower()
+    kaggle = os.path.join(root, "kaggle")
+    os.makedirs(kaggle)
+    data = write_v2_dataset(kaggle, KAGGLE, "phase 7a")
+    argv = v2_argv(BATCH, V2_LIMITS, data, tables=KAGGLE,
+                   path=("--embedding_impl", "auto", *DCN))
+    probe, steps, out = run_v2_main(
+        "phase 7a", argv, "make_fused_train_step",
+        ("coalesce_rows", "row_scatter_add"))
+    check("embedding update: fused coalesce+scatter step" in out,
+          "phase 7a: --embedding_impl auto did not choose the fused step")
+    log(f"phase 7a: --embedding_impl auto chose the fused coalesce+scatter "
+        f"step at the Criteo Kaggle counts ({sum(KAGGLE)} rows, "
+        f"{sum(KAGGLE) * 128 * 4 / 1e9:.1f} GB in fp32)")
+    report_steps("phase 7a", probe, steps, BATCH)
+    check_no_late_syncs("phase 7a", probe)
+    torch.cuda.empty_cache()
+    model = dcn_model(KAGGLE)
+    batch, entries = fused_kernels_vs_plain(data, model, steps)
+    torch.cuda.empty_cache()
+    same_bits_twice(model, batch)
+    del batch
+    torch.cuda.empty_cache()
+
+    for tag, path, factory, per_step, named in (
+            ("phase 7b", ("--embedding_impl", "dense", "--interaction_type",
+                          "projection"), "make_train_step", (),
+             "embedding update: dense autograd step"),
+            ("phase 7c", (*STREAM_BF16, "--weighted_pooling", "learned"),
+             "make_stream_train_step", ("stream_update",), None)):
+        probe, steps, out = run_v2_main(
+            tag, v2_argv(BATCH, V2_LIMITS, data_v2, path=path), factory,
+            per_step)
+        check(named is None or named in out, f"{tag}: not the {factory} path")
+        report_steps(tag, probe, steps, BATCH)
+        check_no_late_syncs(tag, probe)
+        torch.cuda.empty_cache()
+    fused_vs_dense(data_v2)
+    log(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 def main() -> int:
@@ -1553,12 +1838,17 @@ def main() -> int:
         k2 = phase_gather_path()
         new = phase_kernel_path()
         probes = phase_probes()
-        phase_v2_trainer()
+        root = os.path.dirname(os.path.abspath(__file__))
+        with tempfile.TemporaryDirectory(prefix=".smoke_data_",
+                                         dir=root) as tmp:
+            data_v2 = write_v2_dataset(tmp)
+            phase_v2_trainer(data_v2)
+            fused = phase_other_paths(tmp, data_v2)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = [new["window_grads"], k2, new["stream_rows"],
-               new["window_pool"], *probes]
+               new["window_pool"], *probes, *fused]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -1,28 +1,45 @@
-"""The DLRM model over a plain dict of tensors (the port of the fused-table
+"""The DLRM model over a plain dict of tensors (the port of the stacked-table
 path of dlrm_tpu/models/dlrm.py).
 
 Parameters keep the JAX package's tree so they cross the bridge unchanged:
 {"emb": {"stacked": [rows, d]}, "bot": [{"w": [n_in, n_out], "b": [n_out]},
-...], "top": [...]}. The model object holds only static config. Ported: the
-stacked plain tables, the dot interaction, and the top/bottom towers with
-BCE/MSE/WBCE; QR and MD tables and the cat, dcn and projection interactions
-raise NotImplementedError (ROADMAP queue A item 8).
+...], "top": [...]}, plus "v_w" [rows] under weighted pooling, "dcn" (a list
+of {"v", "w", "b"}) under the dcn interaction and "proj_w1"/"proj_w2" under
+the projection interaction. The model object holds only static config.
+Ported: the stacked plain tables with optional per-row pooling weights, the
+dot, cat, dcn and projection interactions, and the towers with
+BCE/MSE/WBCE; QR and MD tables raise NotImplementedError (ROADMAP queue A
+item 10).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from dlrm_tpu_torch.config import DLRMConfig
+from dlrm_tpu_torch.data.batch import Batch
 from dlrm_tpu_torch.device import resolve_device
-from dlrm_tpu_torch.ops.interaction import dot_interaction
-from dlrm_tpu_torch.ops.mlp import apply_mlp, init_mlp
+from dlrm_tpu_torch.ops.embedding import flat_rows, pool_flat_rows, to_flat
+from dlrm_tpu_torch.ops.interaction import (
+    cat_interaction,
+    dot_interaction,
+    low_rank_cross_net,
+    projection_interaction,
+)
+from dlrm_tpu_torch.ops.mlp import apply_mlp, init_mlp, matmul_f32
+from dlrm_tpu_torch.optim.optimizers import tree_leaves, tree_map
 
 Params = Dict
+
+
+def _xavier_uniform(gen, shape, device) -> torch.Tensor:
+    """U(-a, a), a = sqrt(6 / (shape[0] + shape[1])), as the JAX package's."""
+    a = math.sqrt(6.0 / (shape[0] + shape[1]))
+    return torch.empty(shape, device=device).uniform_(-a, a, generator=gen)
 
 
 class DLRMModel:
@@ -38,70 +55,179 @@ class DLRMModel:
                 [[0], np.cumsum(sizes)[:-1]]
             ).astype(np.int32)
             self.total_rows = int(sizes.sum())
+        self._offsets = {}
 
     def _check_supported(self):
         if not self.fused:
             raise NotImplementedError(
-                "QR/MD tables are not ported yet (ROADMAP queue A item 8)"
+                "QR/MD tables are not ported yet (ROADMAP queue A item 10)"
             )
-        if self.cfg.interaction != "dot":
-            raise NotImplementedError(
-                f"the {self.cfg.interaction!r} interaction is not ported yet "
-                "(ROADMAP queue A item 8)"
-            )
-        if self.cfg.weighted_pooling is not None:
-            raise NotImplementedError(
-                "weighted pooling is not ported yet (ROADMAP queue A item 8)"
-            )
+
+    def offsets(self, device) -> torch.Tensor:
+        """row_offsets as an int32 tensor on `device`, copied there once."""
+        dev = torch.device(device)
+        if dev not in self._offsets:
+            self._offsets[dev] = torch.from_numpy(self.row_offsets).to(dev)
+        return self._offsets[dev]
+
+    # ------------------------------------------------------------------ init
 
     def init_params(self, seed: int = 0, device="cuda") -> Params:
         """Random init with the reference's distributions, drawn on `device`
         from a torch.Generator seeded with `seed`: tables
-        U(-sqrt(1/n), sqrt(1/n)) (dlrm_s_pytorch.py:280-282), MLP weights
-        N(0, sqrt(2/(m+n))), biases N(0, sqrt(1/m)) (:221-225). torch's
-        generator gives other numbers than jax.random from the same seed;
-        tests carry the JAX package's params across with bridge.py."""
+        U(-sqrt(1/n), sqrt(1/n)) (dlrm_s_pytorch.py:280-282), each drawn in
+        place into its rows of the one stacked table (no second copy of
+        it), MLP weights N(0, sqrt(2/(m+n))), biases N(0, sqrt(1/m))
+        (:221-225), v_w ones, and the dcn/projection weights
+        Xavier-uniform with zero biases (the JAX package's
+        _init_interaction). torch's generator gives other numbers than
+        jax.random from the same seed; tests carry the JAX package's params
+        across with bridge.py."""
         self._check_supported()
         cfg = self.cfg
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
-        tables = []
-        for n in cfg.table_sizes:
+        stacked = torch.empty((self.total_rows, cfg.embedding_dim),
+                              device=dev)
+        for off, n in zip(self.row_offsets.tolist(), cfg.table_sizes):
             bound = math.sqrt(1.0 / n)
-            u = torch.rand((n, cfg.embedding_dim), generator=gen, device=dev)
-            tables.append(u * (2 * bound) - bound)
-        return {
-            "emb": {"stacked": torch.cat(tables, dim=0)},
-            "bot": init_mlp(gen, cfg.mlp_bot, dev),
-            "top": init_mlp(gen, cfg.ln_top, dev),
-        }
+            stacked[off: off + n].uniform_(-bound, bound, generator=gen)
+        params = {"emb": {"stacked": stacked}}
+        if cfg.weighted_pooling is not None:
+            params["v_w"] = torch.ones((self.total_rows,), device=dev)
+        params["bot"] = init_mlp(gen, cfg.mlp_bot, dev)
+        params["top"] = init_mlp(gen, cfg.ln_top, dev)
+        params.update(self._init_interaction(gen, dev))
+        return params
+
+    def _init_interaction(self, gen, dev) -> Params:
+        cfg = self.cfg
+        if cfg.interaction == "dcn":
+            n = cfg.num_features * cfg.mlp_bot[-1]
+            r = cfg.dcn.low_rank_dim
+            return {"dcn": [
+                {"v": _xavier_uniform(gen, (r, n), dev),
+                 "w": _xavier_uniform(gen, (n, r), dev),
+                 "b": torch.zeros((n,), device=dev)}
+                for _ in range(cfg.dcn.num_layers)
+            ]}
+        if cfg.interaction == "projection":
+            d = cfg.mlp_bot[-1]
+            fd = cfg.num_features * d
+            p = cfg.proj_interaction_dims[-1]
+            return {"proj_w1": _xavier_uniform(gen, (fd, p * d), dev),
+                    "proj_w2": _xavier_uniform(gen, (fd, p * d), dev)}
+        return {}
+
+    # --------------------------------------------------------------- forward
+
+    def pooling_weights(self, params: Params) -> torch.Tensor:
+        """v_w, detached under weighted_pooling="fixed": the reference keeps
+        fixed pooling weights as buffers, not parameters
+        (dlrm_s_pytorch.py:337-340), so they take no gradient and every
+        optimizer leaves them where they are."""
+        vw = params["v_w"]
+        return vw.detach() if self.cfg.weighted_pooling == "fixed" else vw
+
+    def apply_emb(self, params: Params, batch: Batch,
+                  hot_sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Pooled embeddings [B, T, d] (apply_emb, dlrm_s_pytorch.py:407-462)
+        from the padded [T, B, H] layout (every column, as the JAX
+        package's fused_embedding_bag) or, given the per-table hot_sizes,
+        either layout. With v_w, each hit's weight is multiplied by its
+        row's v_w."""
+        self._check_supported()
+        idx = batch.idx
+        if hot_sizes is None:
+            if idx.dim() != 3:
+                raise ValueError("the flat per-hit layout needs hot_sizes")
+            hot_sizes = (idx.shape[2],) * idx.shape[0]
+        idx, wt, b = to_flat(idx, batch.wt, hot_sizes, batch.dense.shape[0])
+        rows = flat_rows(self.offsets(idx.device), idx, hot_sizes, b)
+        if "v_w" in params:
+            vw = self.pooling_weights(params)[rows]
+            wt = vw if wt is None else wt * vw
+        return pool_flat_rows(params["emb"]["stacked"], rows, wt, hot_sizes, b)
+
+    def interact(self, params: Params, x: torch.Tensor,
+                 ly: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.interaction == "dot":
+            return dot_interaction(x, ly, cfg.interaction_itself)
+        if cfg.interaction == "cat":
+            return cat_interaction(x, ly)
+        if cfg.interaction == "dcn":
+            return low_rank_cross_net(params["dcn"], cat_interaction(x, ly))
+        if cfg.interaction == "projection":
+            return projection_interaction(x, ly, params["proj_w1"],
+                                          params["proj_w2"])
+        raise ValueError(f"interaction {cfg.interaction!r} not supported")
 
     def forward_from_pooled(self, params: Params, dense: torch.Tensor,
                             ly: torch.Tensor):
         """Dense tower + interaction + top MLP given pooled embeddings
-        [B, T, d] -> (probability, logits). Split out so the streamed train
-        step can differentiate with respect to the pooled activations
-        instead of the table. The top MLP's last layer stays linear and
-        gives fp32 logits; the sigmoid is applied to them
-        (dlrm_s_pytorch.py:1293). Its operands keep the compute dtype's
-        values, but the product is taken in fp32, as the JAX package's
-        preferred_element_type=float32 does: a bf16 product would round
-        every logit to 8 bits and tie the eval scores that AUROC ranks."""
+        [B, T, d] -> (probability, logits). Split out so the fused and
+        streamed train steps can differentiate with respect to the pooled
+        activations instead of the table. The top MLP's last layer stays
+        linear and gives fp32 logits (its fp32 product plus the bias, not
+        rounded: a bf16 logit would tie the eval scores that AUROC ranks);
+        the sigmoid is applied to them (dlrm_s_pytorch.py:1293)."""
         self._check_supported()
         cfg = self.cfg
         dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                  else torch.float32)
         x = apply_mlp(params["bot"], dense.to(dtype), cfg.sigmoid_bot)
-        z = dot_interaction(x, ly.to(x.dtype), cfg.interaction_itself)
+        z = self.interact(params, x, ly.to(x.dtype))
         hidden = apply_mlp(params["top"][:-1], z, sigmoid_layer=-1)
         last = params["top"][-1]
-        w = last["w"].to(hidden.dtype)
-        logits = torch.matmul(hidden.float(), w.float()) + last["b"]
+        logits = matmul_f32(hidden, last["w"], last["b"])
         p = torch.sigmoid(logits)
         if 0.0 < cfg.loss_threshold < 1.0:
             p = torch.clamp(p, cfg.loss_threshold, 1.0 - cfg.loss_threshold)
         return p, logits
+
+    def grads_from_pooled(self, params: Params, batch: Batch,
+                          pooled: torch.Tensor):
+        """(loss, probs, grads of the `params` tree, dly): one backward of
+        the masked loss of forward_from_pooled, with respect to params (the
+        tower and interaction leaves; no table) and to the pooled
+        embeddings [B, T, d]. The fused and streamed steps update the
+        table from dly themselves."""
+        pooled = pooled.detach().requires_grad_()
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            probs, logits = self.forward_from_pooled(leaves, batch.dense,
+                                                     pooled)
+            loss = masked_mean(
+                per_example_loss(self.cfg, probs, batch.labels, logits),
+                batch.labels)
+            *grads, dly = torch.autograd.grad(
+                loss, tree_leaves(leaves) + [pooled])
+        it = iter(grads)
+        return (loss.detach(), probs.detach(),
+                tree_map(lambda _: next(it), leaves), dly)
+
+    def apply_with_logits(self, params: Params, batch: Batch,
+                          hot_sizes: Optional[Sequence[int]] = None):
+        """Full forward pass -> (click probability [B, 1], fp32 logits)."""
+        ly = self.apply_emb(params, batch, hot_sizes)
+        return self.forward_from_pooled(params, batch.dense, ly)
+
+    def apply(self, params: Params, batch: Batch,
+              hot_sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+        return self.apply_with_logits(params, batch, hot_sizes)[0]
+
+    # ------------------------------------------------------------------ loss
+
+    def loss(self, params: Params, batch: Batch,
+             hot_sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+        return self.loss_and_prob(params, batch, hot_sizes)[0]
+
+    def loss_and_prob(self, params: Params, batch: Batch,
+                      hot_sizes: Optional[Sequence[int]] = None):
+        p, logits = self.apply_with_logits(params, batch, hot_sizes)
+        return compute_loss(self.cfg, p, batch.labels, logits=logits), p
 
 
 def per_example_loss(
@@ -130,10 +256,27 @@ def per_example_loss(
     return torch.where(t >= 0.5, w1, w0) * per
 
 
-def masked_mean(per: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def masked_mean(per: torch.Tensor, labels: torch.Tensor,
+                denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean over REAL rows only: a label < 0 marks a pad row, which adds
-    nothing to the loss or its gradients."""
+    nothing to the loss or its gradients. `denom` overrides the count of
+    real rows."""
     t = labels.float().reshape(per.shape)
     valid = (t >= 0.0).float()
-    denom = torch.clamp(valid.sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(valid.sum(), min=1.0)
     return (per * valid).sum() / denom
+
+
+def valid_count(labels: torch.Tensor) -> torch.Tensor:
+    """Number of real (non-pad) rows in a labels array."""
+    return (labels.float() >= 0.0).float().sum()
+
+
+def compute_loss(
+    cfg: DLRMConfig,
+    probs: torch.Tensor,
+    labels: torch.Tensor,
+    logits: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    return masked_mean(per_example_loss(cfg, probs, labels, logits), labels)

@@ -8,7 +8,7 @@ bridge unchanged. Masters stay fp32 and are cast to the compute dtype at use.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -27,19 +27,62 @@ def init_mlp(gen: torch.Generator, ln: Sequence[int],
     return layers
 
 
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with fp32 sums, returned in fp32 unrounded. On the card the
+    bf16 tensor-core product writes its fp32 sums (aten::mm.dtype); on the
+    CPU, whose build has no mm.dtype, the operands are widened first: a
+    product of two bf16 values is exact in fp32, so both are the fp32 sums
+    of the same exact products."""
+    if x.device.type == "cuda":
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return torch.mm(x.float(), w.float())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """_mm_f32 with the gradient of a product in the operands' dtype: the
+    fp32 cotangent is rounded to that dtype and multiplied there (fp32 sums
+    inside, as autograd's backward of a bf16 matmul does)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        g = gy.to(x.dtype)
+        gx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        gw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fp32(x @ w) + b in fp32, not rounded: the JAX package's
+    jnp.dot(x, w, preferred_element_type=float32) + b. x is [..., n_in] in
+    the compute dtype and w [n_in, n_out] is cast to it; the caller rounds
+    the result once. In fp32 it is the plain product."""
+    w = w.to(x.dtype)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        y = torch.mm(x2, w)
+    else:
+        y = _MatmulF32.apply(x2, w)
+    y = y.reshape(*lead, w.shape[1])
+    return y if b is None else y + b
+
+
 def apply_mlp(layers: List[dict], x: torch.Tensor,
               sigmoid_layer: int = -1) -> torch.Tensor:
     """x @ w + b per layer; ReLU everywhere except Sigmoid at `sigmoid_layer`.
 
-    Activations stay in the caller's compute dtype. Where the port rounds:
-    in bf16 the product x @ w comes back from the matmul already rounded to
-    bf16 (fp32 accumulation inside), the fp32 bias is added in fp32, and the
-    sum is rounded to bf16 again. The JAX package adds the bias to the fp32
-    product and rounds once (dlrm_tpu/ops/mlp.py:56-59); the two differ by at
-    most one bf16 rounding per layer. In fp32 both are the same sums."""
+    Activations stay in the caller's compute dtype. Each layer rounds once,
+    as dlrm_tpu/ops/mlp.py:55-59 does: the fp32 bias is added to the fp32
+    product (matmul_f32) and the sum is rounded to the compute dtype."""
     dtype = x.dtype
     for i, layer in enumerate(layers):
-        y = torch.matmul(x, layer["w"].to(dtype)).float() + layer["b"]
-        x = y.to(dtype)
+        x = matmul_f32(x, layer["w"], layer["b"]).to(dtype)
         x = torch.sigmoid(x) if i == sigmoid_layer else torch.relu(x)
     return x

@@ -118,19 +118,25 @@ def row_gather(
 
 # -------------------------------------------------------- row scatter-add
 def row_scatter_add_plain(table, idx, delta) -> torch.Tensor:
-    return table.index_add_(0, idx.long(), delta)
+    """The kernel's contract: an index outside [0, rows) is skipped (it
+    selects its rows with a mask, which reads the count back to the
+    host)."""
+    keep = (idx >= 0) & (idx < table.shape[0])
+    return table.index_add_(0, idx[keep].long(), delta[keep])
 
 
 def row_scatter_add_(
     table: torch.Tensor,  # [rows, d] f32 contiguous, updated in place
-    idx: torch.Tensor,  # [n] int32, unique, in [0, rows)
+    idx: torch.Tensor,  # [n] int32, unique
     delta: torch.Tensor,  # [n, d] f32 contiguous
     *,
     check_unique: bool = False,  # checks on the host: a device sync
 ) -> torch.Tensor:
-    """table[idx[k]] += delta[k] in place; returns table. The indices must
-    be unique (each row has one writer on the card, no atomics); that is
-    checked only when asked."""
+    """table[idx[k]] += delta[k] in place; returns table. An index outside
+    [0, rows) is skipped (JAX's FILL_OR_DROP scatter mode), so the fused
+    step's slots past the table change nothing. The indices must be unique
+    (each row has one writer on the card, no atomics); that is checked
+    only when asked."""
     _check("table", table, _F32)
     d = table.shape[1]
     n = idx.numel()

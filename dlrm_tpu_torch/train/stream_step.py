@@ -13,6 +13,13 @@ One train step:
   4. the table takes the per-hit grads G_u (grad_impl="onehot": K1
      window_grads; "gather": gather_grads) and K2 stream_update.
 
+Under weighted pooling (cfg.weighted_pooling, the per-row weights v_w in
+the padded row layout) the forward must be the gather, with v_w folded into
+the hits' weights; d(loss)/d(v_w) is each hit's weight times the dot of its
+row with its bag's dly, summed per row ("fixed": zero, which leaves v_w as
+it is); the table's per-hit weights take v_w at the step's input
+(dlrm_tpu/train/stream_step.py:207-245, :290-300).
+
 Everything updates IN PLACE, where the JAX step donates its buffers
 (stream_step.py:336) and K2 aliases table and accumulator: the step returns
 the same params and opt_state objects it was given, so a caller that wants
@@ -23,6 +30,8 @@ batch while the card works.
 Layouts:
   * params["emb"]["stacked"] is the PADDED block-aligned [padded_rows, d]
     table (pad_params);
+  * params["v_w"], under weighted pooling, is [padded_rows] in the same
+    row layout;
   * rwsadagrad's row accumulator is packed [padded_rows/128, 128];
   * opt_state = {"step": int, "accum": {...}} with "accum" absent for sgd.
 """
@@ -33,8 +42,13 @@ import torch
 
 from dlrm_tpu_torch.data.batch import Batch
 from dlrm_tpu_torch.device import resolve_device
-from dlrm_tpu_torch.models.dlrm import DLRMModel, masked_mean, per_example_loss
-from dlrm_tpu_torch.ops.embedding import grouped_embedding_bag
+from dlrm_tpu_torch.models.dlrm import DLRMModel
+from dlrm_tpu_torch.ops.embedding import (
+    flat_layout,
+    flat_rows,
+    grouped_embedding_bag,
+    to_flat,
+)
 from dlrm_tpu_torch.ops.stream_kernels import (
     gather_grads,
     stream_embedding_fwd,
@@ -50,9 +64,8 @@ from dlrm_tpu_torch.optim.optimizers import (
     ADAGRAD_EPS,
     apply_updates,
     init_dense_state,
-    tree_leaves,
-    tree_map,
 )
+
 
 def plan_for_model(model: DLRMModel, batch_size: int,
                    block_rows: int = 2048, hot_sizes=None) -> StreamPlan:
@@ -68,33 +81,40 @@ def plan_for_model(model: DLRMModel, batch_size: int,
     )
 
 
+def _repack(x, rows, src_offsets, dst_offsets, sizes, fill):
+    """x's rows of each table moved from src_offsets to dst_offsets in a new
+    [rows, ...] tensor (filled with 0 or left empty between tables)."""
+    make = torch.zeros if fill else torch.empty
+    out = make((rows, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    for src, dst, n in zip(src_offsets, dst_offsets, sizes):
+        out[dst : dst + n] = x[src : src + n]
+    return out
+
+
 def pad_params(params, model: DLRMModel, plan: StreamPlan):
     """Repack emb.stacked [total_rows, d] -> padded [plan.padded_rows, d]
-    (every table starts at a block boundary). Returns a new dict; the dense
-    params are shared, not copied."""
-    stacked = params["emb"]["stacked"]
-    padded = torch.zeros((plan.padded_rows, stacked.shape[1]),
-                         dtype=stacked.dtype, device=stacked.device)
-    for t, n in enumerate(plan.table_sizes):
-        off = int(model.row_offsets[t])
-        po = plan.padded_offsets[t]
-        padded[po : po + n] = stacked[off : off + n]
+    (every table starts at a block boundary), and v_w [total_rows] into
+    the same row layout. Returns a new dict; the dense params are shared,
+    not copied."""
+    src = [int(o) for o in model.row_offsets]
+    args = (plan.padded_rows, src, plan.padded_offsets, plan.table_sizes,
+            True)
     out = dict(params)
-    out["emb"] = {"stacked": padded}
+    out["emb"] = {"stacked": _repack(params["emb"]["stacked"], *args)}
+    if "v_w" in params:
+        out["v_w"] = _repack(params["v_w"], *args)
     return out
 
 
 def unpad_params(params, model: DLRMModel, plan: StreamPlan):
     """Inverse of pad_params."""
-    padded = params["emb"]["stacked"]
-    stacked = torch.empty((model.total_rows, padded.shape[1]),
-                          dtype=padded.dtype, device=padded.device)
-    for t, n in enumerate(plan.table_sizes):
-        off = int(model.row_offsets[t])
-        po = plan.padded_offsets[t]
-        stacked[off : off + n] = padded[po : po + n]
+    dst = [int(o) for o in model.row_offsets]
+    args = (model.total_rows, plan.padded_offsets, dst, plan.table_sizes,
+            False)
     out = dict(params)
-    out["emb"] = {"stacked": stacked}
+    out["emb"] = {"stacked": _repack(params["emb"]["stacked"], *args)}
+    if "v_w" in params:
+        out["v_w"] = _repack(params["v_w"], *args)
     return out
 
 
@@ -131,6 +151,23 @@ def _offsets(plan: StreamPlan, dev) -> torch.Tensor:
     return torch.tensor(plan.padded_offsets, dtype=torch.int32, device=dev)
 
 
+def _padded_hit_ids(plan: StreamPlan, idx, offsets, batch=None):
+    """Every hit's row in the PADDED layout (the index space of the stream
+    table and of v_w after pad_params), in idx's own layout: flat
+    [sum_t B*h_t] table-major, or padded [T, B, Hmax]. batch: the flat
+    layout's batch size when it differs from plan.batch (eval batches)."""
+    if idx.dim() == 1:
+        return flat_rows(offsets, idx, plan.hot,
+                         plan.batch if batch is None else int(batch))
+    return idx + offsets[:, None, None]
+
+
+def _weighted(wt, vw, hit_ids):
+    """The hits' weights times their rows' v_w."""
+    vw_hits = vw[hit_ids.long()]
+    return vw_hits if wt is None else wt * vw_hits
+
+
 def make_stream_train_step(
     model: DLRMModel,
     optimizer: str,
@@ -154,6 +191,12 @@ def make_stream_train_step(
         raise ValueError(f"optimizer {optimizer!r} not supported")
     model._check_supported()
     cfg = model.cfg
+    weighted = cfg.weighted_pooling  # None | "fixed" | "learned"
+    if weighted is not None and fwd_impl != "gather":
+        raise ValueError(
+            "weighted pooling on the stream step requires fwd_impl='gather', "
+            "as the JAX step does (K3/K4 pool with the host-built slot "
+            "weights, which do not carry v_w)")
     eps = ADAGRAD_EPS if eps is None else float(eps)
     offsets = _offsets(plan, resolve_device(device))
 
@@ -171,38 +214,19 @@ def make_stream_train_step(
             wts_u = (sw.rows_u != SENTINEL_ROW).float()
         dense = {k: v for k, v in params.items() if k != "emb"}
         b = batch.dense.shape[0]
-
         with torch.no_grad():
-            if fwd_impl == "stream":
-                if sw.touched_only:
-                    raise ValueError(
-                        "fwd_impl='stream' needs the full item list (K3 "
-                        "must write every slot); build the batch without "
-                        "update_touched_only")
-                pooled = stream_embedding_fwd(
-                    plan, emb, sw.rows_u, sw.vals_u, wts_u, sw.w2t,
-                    sw.item_block, sw.item_row0, sw.item_u,
-                    mm_dtype=mm_dtype,
-                ).transpose(0, 1)
-            else:
-                pooled = grouped_embedding_bag(
-                    emb, offsets, batch.idx, batch.wt, plan.hot, batch=b
-                )
-        pooled.requires_grad_()
-        leaves = tree_map(lambda p: p.detach().requires_grad_(), dense)
-        with torch.enable_grad():
-            probs, logits = model.forward_from_pooled(
-                leaves, batch.dense, pooled
-            )
-            loss = masked_mean(
-                per_example_loss(cfg, probs, batch.labels, logits),
-                batch.labels,
-            )
-            *dgrads, dly = torch.autograd.grad(
-                loss, tree_leaves(leaves) + [pooled]
-            )
-        it = iter(dgrads)
-        grads = tree_map(lambda _: next(it), leaves)
+            pooled = _pooled(params, batch, sw, wts_u, b)
+        loss, probs, grads, dly = model.grads_from_pooled(
+            {k: v for k, v in dense.items() if k != "v_w"}, batch, pooled)
+        if weighted is not None:
+            with torch.no_grad():
+                grads["v_w"] = _vw_grad(params, batch, dly, b)
+                # d(loss)/d(row) = sum over hits of wt * v_w[row] * dly[bag]:
+                # v_w at the step's input multiplies into the per-hit
+                # weights, taken before the dense update moves v_w in place
+                rows = sw.rows_u + offsets[sw.w2t.long()][:, None, None]
+                rows = torch.where(sw.rows_u == SENTINEL_ROW, 0, rows)
+                wts_u = wts_u * params["v_w"][rows.long()]
 
         with torch.no_grad():
             accum = opt_state.get("accum")
@@ -223,7 +247,48 @@ def make_stream_train_step(
                 stochastic_round=stochastic_round, seed=opt_state["step"],
             )
         opt_state["step"] += 1
-        return params, opt_state, loss.detach(), probs.detach()
+        return params, opt_state, loss, probs
+
+    def _pooled(params, batch, sw, wts_u, b):
+        """pooled [B, T, d]: K3 + K4, or the gather (with v_w folded into
+        the hits' weights, then in fp32 as the JAX step's)."""
+        emb = params["emb"]["stacked"]
+        if fwd_impl == "stream":
+            if sw.touched_only:
+                raise ValueError(
+                    "fwd_impl='stream' needs the full item list (K3 must "
+                    "write every slot); build the batch without "
+                    "update_touched_only")
+            return stream_embedding_fwd(
+                plan, emb, sw.rows_u, sw.vals_u, wts_u, sw.w2t,
+                sw.item_block, sw.item_row0, sw.item_u, mm_dtype=mm_dtype,
+            ).transpose(0, 1)
+        if weighted is None:
+            return grouped_embedding_bag(emb, offsets, batch.idx, batch.wt,
+                                         plan.hot, batch=b)
+        wt = _weighted(batch.wt, params["v_w"],
+                       _padded_hit_ids(plan, batch.idx, offsets, b))
+        return grouped_embedding_bag(emb, offsets, batch.idx, wt, plan.hot,
+                                     batch=b).float()
+
+    def _vw_grad(params, batch, dly, b):
+        """d(loss)/d(v_w): for each hit, its weight times the dot of its
+        table row with its bag's dly, summed per row (zero under "fixed",
+        whose v_w takes no gradient). Taken by hand: F.embedding_bag's
+        per-sample-weights backward has no bf16 kernel on the card."""
+        vw = params["v_w"]
+        if weighted == "fixed":
+            return torch.zeros_like(vw)
+        idx, wt, _ = to_flat(batch.idx, batch.wt, plan.hot, b)
+        rows = flat_rows(offsets, idx, plan.hot, b).long()
+        bag = flat_layout(tuple(plan.hot), b, idx.device)[2]
+        d = dly.shape[-1]
+        per_hit = (params["emb"]["stacked"].index_select(0, rows).float()
+                   * dly.reshape(-1, d).float().index_select(0, bag.long())
+                   ).sum(dim=1)
+        if wt is not None:
+            per_hit = per_hit * wt
+        return torch.zeros_like(vw).index_add_(0, rows, per_hit)
 
     return train_step
 
@@ -231,18 +296,25 @@ def make_stream_train_step(
 def make_stream_eval_step(model: DLRMModel, plan: StreamPlan,
                           device="cuda"):
     """Forward-only step over the stream-layout (padded) table: the same
-    gather + pool as training, no stream work needed on eval batches.
-    eval_step(params, batch) -> probs [B, 1]."""
+    gather + pool as training (v_w folded into the hits' weights), no
+    stream work needed on eval batches. eval_step(params, batch) ->
+    probs [B, 1]."""
     model._check_supported()
     offsets = _offsets(plan, resolve_device(device))
 
     @torch.no_grad()
     def eval_step(params, batch: Batch):
+        b = batch.dense.shape[0]
+        wt = batch.wt
+        if "v_w" in params:
+            wt = _weighted(wt, params["v_w"],
+                           _padded_hit_ids(plan, batch.idx, offsets, b))
         pooled = grouped_embedding_bag(
-            params["emb"]["stacked"], offsets, batch.idx, batch.wt, plan.hot,
-            batch=batch.dense.shape[0],
+            params["emb"]["stacked"], offsets, batch.idx, wt, plan.hot,
+            batch=b,
         )
-        dense = {k: v for k, v in params.items() if k != "emb"}
+        dense = {k: v for k, v in params.items()
+                 if k not in ("emb", "v_w")}
         probs, _ = model.forward_from_pooled(dense, batch.dense, pooled)
         return probs
 

@@ -2,11 +2,15 @@
 torchrec_dlrm/dlrm_main.py equivalent).
 
 The flag surface is the JAX trainer's (dlrm_main.py:75-311, underscore
-style). Ported: the single-device stream path (the U-layout update, K2 on
-the card), the random-data, Multihot and materialized multi-hot loaders,
-the overlapped host pipeline (train/pipeline.py::DevicePrefetcher, a host
-thread and a CUDA side stream), the LR policy, and per-epoch train/val/test
-with the exact AUROC. Branches that are not ported raise
+style). Ported: the single-device paths, which are the stream path (the
+U-layout update, K2 on the card), the fused coalesce+scatter step
+(train/fused_step.py, the coalesce_rows and row_scatter_add kernels on the
+card) and the dense autograd step (train/step.py), with the dot, dcn and
+projection interactions and weighted pooling; the random-data, Multihot
+and materialized multi-hot loaders, the overlapped host pipeline
+(train/pipeline.py::DevicePrefetcher, a host thread and a CUDA side
+stream), the LR policy, and per-epoch train/val/test with the exact AUROC.
+Multi-process and multi-device runs and the binary Criteo loader raise
 NotImplementedError naming their ROADMAP queue A item; none falls back.
 
 Usage:
@@ -43,7 +47,13 @@ from dlrm_tpu_torch.device import process_count, resolve_device
 from dlrm_tpu_torch.models.dlrm import DLRMModel
 from dlrm_tpu_torch.ops.metrics import roc_auc_exact
 from dlrm_tpu_torch.optim.lr_policy import LRPolicy
+from dlrm_tpu_torch.optim.optimizers import init_opt_state
+from dlrm_tpu_torch.train.fused_step import (
+    make_fused_train_step,
+    supports_fused,
+)
 from dlrm_tpu_torch.train.pipeline import DevicePrefetcher
+from dlrm_tpu_torch.train.step import make_eval_step, make_train_step
 from dlrm_tpu_torch.train.stream_step import (
     cast_emb,
     init_stream_opt_state,
@@ -123,10 +133,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--embedding_impl", choices=["auto", "dense", "fused", "stream"],
         default="auto",
-        help="table update path: stream = the U-layout update (K2), ported; "
-        "fused (coalesce+scatter in the backward) and dense (plain "
-        "autograd) are not ported yet; auto picks stream or fused by the "
-        "card's cost model (_pick_stream)",
+        help="table update path: stream = the U-layout update (K2); fused "
+        "= coalesce+scatter in the backward (fp32 tables); dense = plain "
+        "autograd with the dense table gradient; auto picks stream or "
+        "fused by the card's cost model (_pick_stream), or dense where "
+        "fused does not apply (weighted pooling)",
     )
     p.add_argument(
         "--embedding_dtype", choices=["float32", "bfloat16"],
@@ -138,7 +149,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--weighted_pooling", choices=["fixed", "learned"], default=None,
         help="per-row pooling weights v_w (fixed = frozen, learned = "
-        "trained); not ported yet",
+        "trained), on the stream and dense paths",
     )
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_model", type=int, default=0)
@@ -172,11 +183,6 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--auroc_target", type=float, default=None)
     return p
-
-
-def supports_fused(model: DLRMModel) -> bool:
-    """The fused step's precondition (dlrm_tpu/train/fused_step.py)."""
-    return model.fused and model.cfg.weighted_pooling is None
 
 
 def _pick_stream(args, model_cfg, hot_sizes=None) -> bool:
@@ -302,7 +308,7 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> int:
     optimizer = "rwsadagrad" if args.adagrad else "sgd"
     model = DLRMModel(model_cfg)
 
-    # ---------------- the path: only the single-device stream branch
+    # ---------------- the path: one of the single-device branches
     n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
     multi = args.sharded and n_devices > 1
     if args.rw_bucket != "off" and not multi:
@@ -322,16 +328,9 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> int:
             "--sharded over more than one CUDA device is not ported yet "
             "(ROADMAP queue A item 11)"
         )
-    if not (args.embedding_impl in ("stream", "auto")
-            and _pick_stream(args, model_cfg, hot_sizes)):
-        raise NotImplementedError(
-            f"--embedding_impl {args.embedding_impl} takes the "
-            + ("dense autograd step" if args.embedding_impl == "dense"
-               else "fused coalesce+scatter step")
-            + ", which is not ported yet (ROADMAP queue A item 8); pass "
-            "--embedding_impl stream"
-        )
-    if not model.fused:
+    stream = args.embedding_impl in ("stream", "auto") and _pick_stream(
+        args, model_cfg, hot_sizes)
+    if stream and not model.fused:
         raise SystemExit("--embedding_impl stream needs plain uniform "
                          "tables (no qr/md)")
 
@@ -403,38 +402,60 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> int:
     val_loader = make_loader("val", args.limit_val_batches)
     test_loader = make_loader("test", args.limit_test_batches)
 
-    # ---------------- model/optimizer: the stream branch (v2_main.py:671-724)
+    # ---------------- model/optimizer (v2_main.py:671-734)
     params = model.init_params(seed=args.seed, device=dev)
-    plan = plan_for_model(
-        model, args.batch_size,
-        hot_sizes=hot_sizes if hot_sizes else None,
-    )
-    params = pad_params(params, model, plan)
-    bf16 = args.embedding_dtype == "bfloat16"
-    if bf16:
-        params = cast_emb(params, torch.bfloat16)
-    opt_state = init_stream_opt_state(optimizer, params, plan)
-    train_step = make_stream_train_step(
-        model, optimizer, plan, grad_impl="gather",
-        mm_dtype=torch.bfloat16 if bf16 else torch.float32,
-        stochastic_round=bf16,
-        eps=args.eps,
-        device=dev,
-    )
-    eval_step = make_stream_eval_step(model, plan, device=dev)
-    # the flat per-hit layout ships each table's real plan.hot[t] hits, not
-    # the padded [T, B, Hmax] block; the touched-only item list suits this
-    # path (gather forward, K2 in place), and DLRM_K2_NO_ALIAS restores
-    # the full list as in the JAX trainer
-    touched = not os.environ.get("DLRM_K2_NO_ALIAS")
+    if stream:
+        plan = plan_for_model(
+            model, args.batch_size,
+            hot_sizes=hot_sizes if hot_sizes else None,
+        )
+        params = pad_params(params, model, plan)
+        bf16 = args.embedding_dtype == "bfloat16"
+        if bf16:
+            params = cast_emb(params, torch.bfloat16)
+        opt_state = init_stream_opt_state(optimizer, params, plan)
+        train_step = make_stream_train_step(
+            model, optimizer, plan, grad_impl="gather",
+            mm_dtype=torch.bfloat16 if bf16 else torch.float32,
+            stochastic_round=bf16,
+            eps=args.eps,
+            device=dev,
+        )
+        eval_step = make_stream_eval_step(model, plan, device=dev)
+        hot = plan.hot
+        # the touched-only item list suits this path (gather forward, K2 in
+        # place), and DLRM_K2_NO_ALIAS restores the full list as in the JAX
+        # trainer
+        touched = not os.environ.get("DLRM_K2_NO_ALIAS")
 
-    def to_device(hb):  # the U-layout work rides each train batch
-        return hb.with_stream_work(
-            plan, update_touched_only=touched
-        ).to_device(dev, flat_hots=plan.hot)
+        def to_device(hb):  # the U-layout work rides each train batch
+            return hb.with_stream_work(
+                plan, update_touched_only=touched
+            ).to_device(dev, flat_hots=hot)
+    else:
+        # the JAX trainer's last branch: the fused step where it applies
+        # and dense was not asked for, else the dense autograd step (which
+        # keeps the torch default eps, as the JAX trainer's does); both
+        # keep fp32 tables
+        hot = (tuple(hot_sizes) if hot_sizes
+               else (model_cfg.num_indices_per_lookup,) * model_cfg.num_tables)
+        opt_state = init_opt_state(optimizer, params)
+        if supports_fused(model) and args.embedding_impl != "dense":
+            print("embedding update: fused coalesce+scatter step")
+            train_step = make_fused_train_step(model, optimizer, eps=args.eps,
+                                               hot_sizes=hot)
+        else:
+            print("embedding update: dense autograd step")
+            train_step = make_train_step(model, optimizer, hot_sizes=hot)
+        eval_step = make_eval_step(model, hot_sizes=hot)
 
+        def to_device(hb):
+            return hb.to_device(dev, flat_hots=hot)
+
+    # every path ships the flat per-hit layout: each table's real hot[t]
+    # hits, not the padded [T, B, Hmax] block
     def eval_to_device(hb):
-        return hb.to_device(dev, flat_hots=plan.hot)
+        return hb.to_device(dev, flat_hots=hot)
 
     lr_policy = LRPolicy(
         args.learning_rate, args.lr_warmup_steps, args.lr_decay_start,

@@ -95,3 +95,44 @@ def test_port_layout_helpers_match_jax(jax_side):
             params_to_jax(tstep.init_stream_opt_state(optimizer, tpp, tplan)),
             _np(jstep.init_stream_opt_state(optimizer, jp, plan)),
         )
+
+
+@pytest.mark.parametrize("interaction", ["dcn", "projection"])
+def test_round_trip_interaction_and_pooling_weights(interaction):
+    """A tree with the dcn layer list or proj_w1/proj_w2, v_w, and the
+    rwsadagrad state of the plain and the stream layouts crosses bit for
+    bit; the port's pad_params/unpad_params move v_w as JAX's do."""
+    from dlrm_tpu.config import DCNConfig as JaxDCN
+    from dlrm_tpu.optim.optimizers import init_opt_state
+
+    extra = ({"dcn": JaxDCN(2, 16)} if interaction == "dcn"
+             else {"proj_interaction_dims": (2,)})
+    kw = dict(KW, interaction=interaction, weighted_pooling="learned")
+    model = JaxModel(JaxConfig(**kw, **extra))
+    params = model.init_params(jax.random.PRNGKey(5))
+    params["v_w"] = params["v_w"] * jnp.linspace(0.5, 1.5,
+                                                 params["v_w"].shape[0])
+    assert "v_w" in params and (
+        "dcn" in params if interaction == "dcn" else "proj_w2" in params)
+    state = jax.tree_util.tree_map(lambda x: x + 2,
+                                   init_opt_state("rwsadagrad", params))
+    for tree in (params, state):
+        _assert_trees_bit_equal(
+            params_to_jax(params_from_jax(_np(tree), device="cpu")),
+            _np(tree))
+    plan = jstep.plan_for_model(model, B, block_rows=1024)
+    tcfg = dict(kw)
+    if interaction == "dcn":
+        from dlrm_tpu_torch.config import DCNConfig
+
+        tcfg["dcn"] = DCNConfig(2, 16)
+    else:
+        tcfg["proj_interaction_dims"] = (2,)
+    tmodel = DLRMModel(DLRMConfig(**tcfg))
+    tplan = tstep.plan_for_model(tmodel, B, block_rows=1024)
+    tpp = tstep.pad_params(params_from_jax(_np(params), device="cpu"),
+                           tmodel, tplan)
+    jp = jstep.pad_params(params, model, plan)
+    _assert_trees_bit_equal(params_to_jax(tpp), _np(jp))
+    _assert_trees_bit_equal(
+        params_to_jax(tstep.unpad_params(tpp, tmodel, tplan)), _np(params))

@@ -79,6 +79,26 @@ def test_row_scatter_add_kernel_matches_plain(dev):
 
 
 @pytest.mark.cuda
+def test_row_scatter_add_skips_rows_outside_the_table(dev):
+    """The fused step's slots past the table (rows total_rows + slot) and
+    negative rows are skipped by the kernel and by its plain version
+    alike: the same bits."""
+    gen = _gen(dev, 2)
+    table = torch.randn((5000, 128), generator=gen, device=dev)
+    perm = np.random.default_rng(2).permutation(5000)[:1000]
+    idx = np.concatenate([perm, 5000 + np.arange(300), [-1, -7]])
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    delta = torch.randn((idx.numel(), 128), generator=gen, device=dev)
+    want = pk.row_scatter_add_plain(table.clone(), idx, delta)
+    with _counted("row_scatter_add"):
+        got = pk.row_scatter_add_(table.clone(), idx, delta)
+    assert torch.equal(got, want)
+    untouched = torch.ones(5000, dtype=torch.bool, device=dev)
+    untouched[idx[:1000].long()] = False
+    assert torch.equal(got[untouched], table[untouched])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("walk", ["static", "dynamic"])
 @pytest.mark.parametrize("in_place", [False, True], ids=["out", "aliased"])
 @pytest.mark.parametrize("depth", [1, 2, 4])

@@ -3,9 +3,11 @@ same numpy inputs and the same parameters (carried with bridge.py).
 
 Tolerances: fp32 values rtol 1e-5 / atol 1e-6 and grads rtol 1e-4 /
 atol 1e-5 (the two frameworks sum in different orders); bf16 compute
-rtol/atol 2e-2 (one bf16 rounding is 2^-8 relative, and the port rounds the
-matmul product before adding the fp32 bias where JAX rounds once after it,
-see dlrm_tpu_torch/ops/mlp.py)."""
+rtol/atol 2e-2 where several layers compound (one bf16 rounding is 2^-8
+relative). A single bf16 product (a tower layer, the dcn and projection
+products) rounds once on both sides, after the fp32 bias: its output is
+bit-equal to JAX's wherever the two fp32 sums are bit-equal, and within one
+bf16 ulp everywhere (_assert_one_rounding)."""
 
 import jax
 import jax.numpy as jnp
@@ -250,3 +252,264 @@ def test_init_params_distributions():
     again = model.init_params(seed=3, device="cpu")
     assert torch.equal(again["emb"]["stacked"], emb)
     assert torch.equal(again["top"][0]["w"], p["top"][0]["w"])
+
+
+# ------------------------------------------------ one rounding per product
+
+
+def _bf16_order(a) -> np.ndarray:
+    """bf16 values (torch or numpy) as integers in value order: adjacent
+    bf16 numbers differ by 1."""
+    if isinstance(a, torch.Tensor):
+        bits = a.detach().view(torch.int16).numpy()
+    else:
+        bits = np.asarray(a).view(np.int16)
+    bits = bits.astype(np.int32)
+    return np.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def _f32_bits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().numpy()
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+def _assert_one_rounding(t_out, j_out, t_pre=None, j_pre=None):
+    """bf16 outputs within one ulp everywhere; where the fp32 sums before
+    the rounding (same shape as the outputs) are bit-equal, or everywhere
+    when every fp32 product of the chain was (t_pre is None), bit-equal."""
+    assert t_out.dtype == torch.bfloat16
+    ulps = np.abs(_bf16_order(t_out) - _bf16_order(j_out))
+    assert ulps.max() <= 1, ulps.max()
+    same = (np.ones(ulps.shape, bool) if t_pre is None
+            else _f32_bits(t_pre) == _f32_bits(j_pre))
+    assert (ulps[same] == 0).all()
+    return same
+
+
+def test_mlp_tower_bf16_rounds_once():
+    """C1: each bf16 tower layer is bf16(fp32(x @ w) + b), one rounding,
+    as dlrm_tpu/ops/mlp.py:55-59: layer by layer on JAX's own inputs, at
+    the v2 dense widths cut to size, the layer's output bit-equal to JAX's
+    wherever the fp32 pre-activations are, within one ulp everywhere."""
+    rng = np.random.default_rng(11)
+    layers = _np(jmlp.init_mlp(jax.random.PRNGKey(5), (13, 64, 32, 16)))
+    x = jnp.asarray(rng.normal(size=(256, 13)).astype(np.float32) * 3,
+                    jnp.bfloat16)
+    for layer, tl in zip(layers, params_from_jax(layers, device="cpu")):
+        j_pre = jnp.dot(x, jnp.asarray(layer["w"], jnp.bfloat16),
+                        preferred_element_type=jnp.float32) + layer["b"]
+        t_x = torch.from_numpy(np.array(x).view(np.int16)).view(
+            torch.bfloat16)
+        t_pre = tmlp.matmul_f32(t_x, tl["w"], tl["b"])
+        assert t_pre.dtype == torch.float32
+        j_out = jmlp.apply_mlp([layer], x)
+        t_out = tmlp.apply_mlp([tl], t_x)
+        same = _assert_one_rounding(t_out, j_out, t_pre, j_pre)
+        assert same.mean() > 0.5  # the rule was exercised
+        x = j_out
+    # the rounding happens once: the port's layer is its fp32 sum rounded
+    t_x = torch.randn(8, 13).to(torch.bfloat16)
+    tl = params_from_jax(layers, device="cpu")[0]
+    want = torch.relu(
+        (t_x.float() @ tl["w"].to(torch.bfloat16).float() + tl["b"]
+         ).to(torch.bfloat16))
+    assert torch.equal(tmlp.apply_mlp([tl], t_x), want)
+
+
+def _interaction_case(kind, rng):
+    """(params, x, ly) of one interaction at a small width: F = 5
+    features of d = 8."""
+    b, t, d = 24, 4, 8
+    n = (t + 1) * d
+    x = rng.normal(size=(b, d)).astype(np.float32) * 0.5
+    ly = rng.normal(size=(b, t, d)).astype(np.float32) * 0.5
+    if kind == "dcn":
+        params = [{"v": rng.normal(size=(6, n)).astype(np.float32) * 0.3,
+                   "w": rng.normal(size=(n, 6)).astype(np.float32) * 0.3,
+                   "b": rng.normal(size=n).astype(np.float32) * 0.1}
+                  for _ in range(3)]
+    elif kind == "projection":
+        params = {"w1": rng.normal(size=(n, 3 * d)).astype(np.float32) * 0.3,
+                  "w2": rng.normal(size=(n, 3 * d)).astype(np.float32) * 0.3}
+    else:
+        params = {}
+    return params, x, ly
+
+
+def _interact(mod, kind, params, x, ly):
+    if kind == "cat":
+        return mod.cat_interaction(x, ly)
+    if kind == "dcn":
+        return mod.low_rank_cross_net(params, mod.cat_interaction(x, ly))
+    return mod.projection_interaction(x, ly, params["w1"], params["w2"])
+
+
+@pytest.mark.parametrize("kind", ["cat", "dcn", "projection"])
+def test_interactions_values_and_grads(kind):
+    """cat, dcn (3 low-rank layers) and projection against dlrm_tpu's:
+    fp32 values rtol 1e-5 / atol 1e-6 and grads of every input and weight
+    rtol 1e-4 / atol 1e-5; bf16 values one rounding per product."""
+    rng = np.random.default_rng(12)
+    params, x, ly = _interaction_case(kind, rng)
+    jout = _interact(jint, kind, params, x, ly)
+    cot = rng.normal(size=jout.shape).astype(np.float32)
+    jg = jax.grad(
+        lambda p, a, c: jnp.sum(_interact(jint, kind, p, a, c) * cot),
+        argnums=(0, 1, 2))(params, x, ly)
+    tp = params_from_jax(params, device="cpu")
+    for v in jax.tree_util.tree_leaves(tp):
+        v.requires_grad_()
+    tx, tly = _t(x, grad=True), _t(ly, grad=True)
+    tout = _interact(tint, kind, tp, tx, tly)
+    assert tout.shape == jout.shape
+    _close(tout, jout, VAL)
+    (tout * _t(cot)).sum().backward()
+    _close(tx.grad, jg[1], GRAD)
+    _close(tly.grad, jg[2], GRAD)
+    for a, b in zip(jax.tree_util.tree_leaves(tp),
+                    jax.tree_util.tree_leaves(jg[0])):
+        _close(a.grad, b, GRAD)
+
+    # bf16 compute: every product of the chain on JAX's inputs, then the
+    # outputs by the one-rounding rule
+    jx, jly = jnp.asarray(x, jnp.bfloat16), jnp.asarray(ly, jnp.bfloat16)
+    tbx = torch.from_numpy(np.array(jx).view(np.int16)).view(torch.bfloat16)
+    tbly = torch.from_numpy(np.array(jly).view(np.int16)).view(
+        torch.bfloat16)
+    tpd = params_from_jax(params, device="cpu")
+    j16 = _interact(jint, kind, params, jx, jly)
+    t16 = _interact(tint, kind, tpd, tbx, tbly)
+    products_equal = True
+    feats = jint.cat_interaction(jx, jly)
+    tfeats = tint.cat_interaction(tbx, tbly)
+    if kind == "dcn":
+        for lj, lt in zip(params, tpd):
+            low_j = jnp.einsum("bn,rn->br", feats, lj["v"].astype(feats.dtype),
+                               preferred_element_type=jnp.float32)
+            low_t = tmlp.matmul_f32(tfeats, lt["v"].t())
+            products_equal &= bool(
+                (_f32_bits(low_t) == _f32_bits(low_j)).all())
+            low = low_j.astype(jnp.bfloat16)
+            up_j = jnp.einsum("br,nr->bn", low, lj["w"].astype(low.dtype),
+                              preferred_element_type=jnp.float32)
+            up_t = tmlp.matmul_f32(
+                torch.from_numpy(np.array(low).view(np.int16)).view(
+                    torch.bfloat16), lt["w"].t())
+            products_equal &= bool((_f32_bits(up_t) == _f32_bits(up_j)).all())
+            feats = jint.low_rank_cross_net([lj], feats)
+            tfeats = torch.from_numpy(np.array(feats).view(np.int16)).view(
+                torch.bfloat16)
+    elif kind == "projection":
+        for w in ("w1", "w2"):
+            pj = jnp.einsum("bf,fk->bk", feats, params[w].astype(feats.dtype),
+                            preferred_element_type=jnp.float32)
+            pt = tmlp.matmul_f32(tfeats, tpd[w])
+            products_equal &= bool((_f32_bits(pt) == _f32_bits(pj)).all())
+    if products_equal:
+        _assert_one_rounding(t16, j16)
+    else:
+        # a product differs in its last fp32 bit: one rounding apart,
+        # compounded through the chain
+        _close(t16, np.asarray(j16, np.float32), BF16)
+
+
+@pytest.mark.parametrize("interaction", ["dot", "cat", "dcn", "projection"])
+@pytest.mark.parametrize("weighted", [None, "learned", "fixed"])
+def test_model_loss_and_grads(interaction, weighted):
+    """DLRMModel.loss_and_prob and its gradients over the whole params tree
+    (table, v_w, towers, interaction weights) against dlrm_tpu's on a
+    padded batch with random weights: the dense step's function. fp32;
+    "fixed" v_w takes no gradient on either side."""
+    kw = dict(embedding_dim=8, table_sizes=(40, 9, 70), mlp_bot=(4, 16, 8),
+              mlp_top=(16, 1), interaction=interaction, loss="bce",
+              num_indices_per_lookup=3, weighted_pooling=weighted)
+    if interaction == "dcn":
+        from dlrm_tpu.config import DCNConfig as JaxDCN
+        from dlrm_tpu_torch.config import DCNConfig
+
+        jcfg = JaxConfig(**kw, dcn=JaxDCN(2, 5))
+        tcfg = DLRMConfig(**kw, dcn=DCNConfig(2, 5))
+    else:
+        extra = ({"proj_interaction_dims": (2,)}
+                 if interaction == "projection" else {})
+        jcfg, tcfg = JaxConfig(**kw, **extra), DLRMConfig(**kw, **extra)
+    jmodel, tmodel = jdlrm.DLRMModel(jcfg), tdlrm.DLRMModel(tcfg)
+    params = _np(jmodel.init_params(jax.random.PRNGKey(7)))
+    rng = np.random.default_rng(8)
+    if weighted:
+        params["v_w"] = rng.uniform(0.5, 1.5, params["v_w"].shape).astype(
+            np.float32)
+    b = 12
+    idx = np.stack([rng.integers(0, n, (b, 3)) for n in kw["table_sizes"]]
+                   ).astype(np.int32)
+    wt = rng.uniform(0.5, 1.5, idx.shape).astype(np.float32)
+    dense = rng.normal(size=(b, 4)).astype(np.float32)
+    labels = rng.integers(0, 2, (b, 1)).astype(np.float32)
+    from dlrm_tpu.data.batch import Batch as JBatch
+    from dlrm_tpu_torch.data.batch import Batch as TBatch
+
+    jb = JBatch(dense=dense, idx=idx, wt=wt, labels=labels)
+    (jl, jp), jg = jax.value_and_grad(
+        lambda p: jmodel.loss_and_prob(p, jb), has_aux=True)(params)
+    tp = params_from_jax(params, device="cpu")
+    for v in jax.tree_util.tree_leaves(tp):
+        v.requires_grad_()
+    tb = TBatch(_t(dense), _t(idx), _t(wt), _t(labels))
+    tl, tprob = tmodel.loss_and_prob(tp, tb)
+    _close(tl, jl, VAL)
+    _close(tprob, jp, VAL)
+    tl.backward()
+    for (path, g), t in zip(jax.tree_util.tree_flatten_with_path(jg)[0],
+                            jax.tree_util.tree_leaves(tp)):
+        if t.grad is None:  # fixed v_w: detached, JAX's grad is zero
+            assert weighted == "fixed" and "v_w" in str(path)
+            assert not np.asarray(g).any()
+            continue
+        _close(t.grad, g, GRAD)
+    np.testing.assert_allclose(tmodel.apply(tp, tb).detach().numpy(),
+                               np.asarray(jmodel.apply(params, jb)), **VAL)
+
+
+def test_embedding_bag_single_table():
+    rng = np.random.default_rng(9)
+    table = rng.normal(size=(30, 8)).astype(np.float32)
+    idx = rng.integers(0, 30, (10, 4)).astype(np.int32)
+    wt = rng.uniform(0.5, 1.5, idx.shape).astype(np.float32)
+    for w in (None, wt):
+        jout = jemb.embedding_bag(table, idx, w)
+        tout = temb.embedding_bag(_t(table), _t(idx),
+                                  None if w is None else _t(w))
+        _close(tout, jout, VAL)
+
+
+def test_init_params_interaction_and_pooling_weights():
+    """v_w starts at ones; the dcn layers (v [r, n], w [n, r] Xavier-
+    uniform, b zeros) and the projection weights [F*d, p*d] have the JAX
+    package's shapes and bounds; the tree crosses the bridge as JAX's
+    does."""
+    from dlrm_tpu_torch.config import DCNConfig
+
+    base = dict(embedding_dim=8, table_sizes=(40, 9), mlp_bot=(4, 8),
+                mlp_top=(8, 1), loss="bce")
+    m = tdlrm.DLRMModel(DLRMConfig(**base, interaction="dcn",
+                                   dcn=DCNConfig(2, 6),
+                                   weighted_pooling="learned"))
+    p = m.init_params(seed=1, device="cpu")
+    assert torch.equal(p["v_w"], torch.ones(49))
+    assert len(p["dcn"]) == 2
+    for layer in p["dcn"]:
+        assert layer["v"].shape == (6, 24) and layer["w"].shape == (24, 6)
+        a = (6.0 / 30) ** 0.5
+        assert float(layer["v"].abs().max()) <= a
+        assert not layer["b"].any()
+    m = tdlrm.DLRMModel(DLRMConfig(**base, interaction="projection",
+                                   proj_interaction_dims=(4,)))
+    p = m.init_params(seed=1, device="cpu")
+    assert p["proj_w1"].shape == p["proj_w2"].shape == (24, 32)
+    assert not torch.equal(p["proj_w1"], p["proj_w2"])
+    jp = jdlrm.DLRMModel(JaxConfig(**base, interaction="projection",
+                                   proj_interaction_dims=(4,))).init_params(
+        jax.random.PRNGKey(0))
+    assert (jax.tree_util.tree_structure(_np(jp))
+            == jax.tree_util.tree_structure(p))

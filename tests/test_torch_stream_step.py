@@ -67,10 +67,12 @@ def _arrays(seed, hot=4, weights="ones", concentrate=None):
 class Pair:
     """The same model, params and optimizer state on both sides."""
 
-    def __init__(self, optimizer, hot=None, emb_bf16=False, seed=0):
+    def __init__(self, optimizer, hot=None, emb_bf16=False, seed=0,
+                 weighted=None):
         self.optimizer = optimizer
-        self.jmodel = JaxModel(JaxConfig(**KW))
-        self.tmodel = DLRMModel(DLRMConfig(**KW))
+        kw = dict(KW, weighted_pooling=weighted)
+        self.jmodel = JaxModel(JaxConfig(**kw))
+        self.tmodel = DLRMModel(DLRMConfig(**kw))
         if hot is None:
             self.jplan = jstep.plan_for_model(self.jmodel, B, block_rows=1024)
             self.tplan = tstep.plan_for_model(self.tmodel, B, block_rows=1024)
@@ -81,6 +83,9 @@ class Pair:
         p = jstep.pad_params(
             self.jmodel.init_params(jax.random.PRNGKey(seed)), self.jmodel,
             self.jplan)
+        if weighted:  # v_w away from 1, so that the weighting matters
+            p["v_w"] = p["v_w"] * (1.0 + 0.5 * jnp.sin(
+                jnp.arange(self.jplan.padded_rows, dtype=jnp.float32)))
         if emb_bf16:
             p = jstep.cast_emb(p, jnp.bfloat16)
         self.jp = _np(p)
@@ -382,11 +387,107 @@ def test_stream_step_rejects_unported_paths():
     p, s = pair.port_state()
     with pytest.raises(ValueError, match="full item list"):
         pair.port_step(fwd_impl="stream")(p, s, tb[0], LR)
+    # weighted pooling needs the gather forward, as in JAX; the gather
+    # forward takes it, and the other interactions build
     model = DLRMModel(DLRMConfig(**dict(KW, weighted_pooling="learned")))
-    for fwd_impl in ("gather", "stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstep.make_stream_train_step(model, "sgd", pair.tplan,
-                                         fwd_impl=fwd_impl, device="cpu")
+    with pytest.raises(ValueError, match="fwd_impl='gather'"):
+        tstep.make_stream_train_step(model, "sgd", pair.tplan,
+                                     fwd_impl="stream", device="cpu")
+    tstep.make_stream_train_step(model, "sgd", pair.tplan, device="cpu")
     model = DLRMModel(DLRMConfig(**dict(KW, interaction="cat")))
+    tstep.make_stream_train_step(model, "sgd", pair.tplan, device="cpu")
+    # QR/MD tables are the one model left (ROADMAP A10)
+    from dlrm_tpu_torch.config import QRConfig
+
+    model = DLRMModel(DLRMConfig(**dict(KW, qr=QRConfig())))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstep.make_stream_train_step(model, "sgd", pair.tplan, device="cpu")
+
+
+# ------------------------------------------------------- weighted pooling
+
+
+def _dense_step_reference(pair, batches_np, steps):
+    """The port's dense autograd step (train/step.py) on the unpadded
+    params: tests/test_stream_step.py's oracle for weighted pooling."""
+    from dlrm_tpu_torch.optim.optimizers import init_opt_state
+    from dlrm_tpu_torch.train.step import make_train_step
+
+    tp, _ = pair.port_state()
+    rp = tstep.unpad_params(tp, pair.tmodel, pair.tplan)
+    rs = init_opt_state(pair.optimizer, rp)
+    step = make_train_step(pair.tmodel, pair.optimizer)
+    losses = [float(step(rp, rs, HostBatch(*a).to_device("cpu"), LR)[2])
+              for a in batches_np[:steps]]
+    return rp, losses
+
+
+@pytest.mark.parametrize("mode", ["learned", "fixed"])
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rwsadagrad"])
+def test_weighted_pooling_matches_dense_step_and_jax(mode, optimizer):
+    """tests/test_stream_step.py:346 on the port: the weighted stream step
+    (gather forward, v_w inside the autograd region, v_w folded into K2's
+    per-hit weights) against the port's dense step (loss rtol 1e-5 /
+    atol 1e-6, v_w and table rtol 1e-4 / atol 1e-5), and against JAX's
+    weighted stream step at the file's tolerances. learned: v_w moves;
+    fixed: it keeps every bit while the table trains."""
+    pair = Pair(optimizer, weighted=mode)
+    arrays = [_arrays(80 + s, weights="random") for s in range(2)]
+    jb, tb = pair.batches(arrays)
+    (jp, js), (tp, ts) = _run_both(pair, jb, tb)
+    _assert_params_close(tp, jp, js)
+    got = tstep.unpad_params(params_from_jax(tp, device="cpu"), pair.tmodel,
+                             pair.tplan)
+    ref, ref_losses = _dense_step_reference(pair, arrays, 2)
+    p0 = tstep.unpad_params(pair.port_state()[0], pair.tmodel, pair.tplan)
+    for key in ("v_w", "emb"):
+        a, b = got[key], ref[key]
+        a, b = (a, b) if key == "v_w" else (a["stacked"], b["stacked"])
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    if mode == "fixed":
+        assert torch.equal(got["v_w"], p0["v_w"])
+    else:
+        assert float((got["v_w"] - p0["v_w"]).abs().max()) > 0
+    assert float((got["emb"]["stacked"] - p0["emb"]["stacked"]).abs().max()
+                 ) > 0
+
+
+def test_weighted_pooling_onehot_grads_match_jax():
+    """grad_impl="onehot": K1 takes the v_w-folded per-hit weights."""
+    pair = Pair("rwsadagrad", weighted="learned")
+    jb, tb = pair.batches([_arrays(90 + s, weights="random")
+                           for s in range(STEPS)])
+    impl = dict(grad_impl="onehot")
+    (jp, js), (tp, ts) = _run_both(pair, jb, tb, jkw=impl, tkw=impl)
+    _assert_params_close(tp, jp, js)
+    _assert_close_trees(ts, js, PARAM)
+
+
+def test_weighted_pooling_flat_layout():
+    """tests/test_stream_step.py:405 on the port: v_w parity between the
+    padded and the flat per-hit layouts (_padded_hit_ids), train (loss
+    rtol 1e-6; v_w rtol 1e-5 / atol 1e-6, its grads summed in another
+    hit order) and eval (rtol 1e-6), and the flat layout against JAX."""
+    hot = (4, 1, 3)
+    pair = Pair("rwsadagrad", hot=hot, weighted="learned")
+    arrays = [_arrays(95, hot=hot, weights="random")]
+    _, tb_pad = pair.batches(arrays)
+    jb_flat, tb_flat = pair.batches(arrays, flat=True)
+    outs = []
+    for b in (tb_pad[0], tb_flat[0]):
+        p, s = pair.port_state()
+        _, _, loss, _ = pair.port_step()(p, s, b, LR)
+        outs.append((p, float(loss)))
+    np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=1e-6)
+    torch.testing.assert_close(outs[0][0]["v_w"], outs[1][0]["v_w"],
+                               rtol=1e-5, atol=1e-6)
+    ev = tstep.make_stream_eval_step(pair.tmodel, pair.tplan, device="cpu")
+    p, _ = pair.port_state()
+    torch.testing.assert_close(ev(p, tb_pad[0]), ev(p, tb_flat[0]),
+                               rtol=1e-6, atol=0)
+    jev = jstep.make_stream_eval_step(pair.jmodel, pair.jplan)
+    np.testing.assert_allclose(
+        ev(p, tb_flat[0]).numpy(),
+        np.asarray(jev(pair.jax_state()[0], jb_flat[0])), **LOSS)
+    (jp, js), (tp, _) = _run_both(pair, jb_flat, tb_flat)
+    _assert_params_close(tp, jp, js)

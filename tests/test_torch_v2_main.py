@@ -5,8 +5,10 @@ init carried across with bridge.py; final loss within rtol 0.02, the
 bf16-tower tolerance of test_torch_stream_step.py; AUROC within atol 0.02,
 a few dozen of the eval sets' 2,500-4,000 positive-negative pairs ranked
 the other way, since the two bf16 towers round differently; the LR
-sequence and sample counts exact), the flag surface, the auto cost model,
-and the branches that are not ported. The parity runs keep the learning
+sequence and sample counts exact) on every single-device branch (stream,
+fused, dense; the dot, dcn and projection interactions; weighted pooling
+on the auto and stream paths), the flag surface, the auto cost model, and
+the branches that are not ported. The parity runs keep the learning
 rate small: on random labels a model barely moves off its init, and
 Adagrad's first steps or a large SGD rate amplify the towers' rounding
 differences until AUROC, which ranks near-equal scores, says nothing."""
@@ -319,30 +321,61 @@ BASE = ["--limit_train_batches", "1", "--batch_size", "16", *SMALL,
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--embedding_impl", "fused"], "item 8"),
-    (["--embedding_impl", "dense"], "item 8"),
-    (["--interaction_type", "dcn", "--dcn_low_rank_dim", "8"], "item 8"),
-    (["--interaction_type", "projection",
-      "--interaction_branch1_layer_sizes", "16,16"], "item 8"),
-    (["--weighted_pooling", "learned"], "item 8"),
-    (["--weighted_pooling", "fixed", "--embedding_impl", "stream"], "item 8"),
     (["--in_memory_binary_criteo_path", "/nonexistent"], "item 10"),
-], ids=["fused", "dense", "dcn", "projection", "wp-auto", "wp-stream",
-        "binary-criteo"])
+], ids=["binary-criteo"])
 def test_unported_branches_raise(extra, item):
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
         _run(BASE + extra)
 
 
-def test_auto_on_huge_tables_raises_for_the_fused_path():
-    """auto picks fused for huge tables at a small batch, and the fused
-    step is not ported: it raises before a table is drawn."""
-    with pytest.raises(NotImplementedError, match="fused.*queue A item 8"):
-        _run(["--limit_train_batches", "1", "--batch_size", "16",
-              "--embedding_dim", "128", "--dense_arch_layer_sizes", "16,128",
-              "--over_arch_layer_sizes", "16,8,1",
-              "--num_embeddings_per_feature", "500000,500000,500000,500000",
-              "--multi_hot_sizes", "1,1,1,1"])
+PARITY = ["--limit_train_batches", "4", "--limit_val_batches", "2",
+          "--limit_test_batches", "2", "--batch_size", "64", *SMALL,
+          "--num_embeddings_per_feature", "64,32,48",
+          "--multi_hot_sizes", "3,1,5", "--learning_rate", "0.05"]
+
+
+@pytest.mark.parametrize("extra,path", [
+    (["--embedding_impl", "fused", "--adagrad"], "fused"),
+    (["--embedding_impl", "dense", "--adagrad"], "dense"),
+    (["--interaction_type", "dcn", "--dcn_num_layers", "2",
+      "--dcn_low_rank_dim", "8", "--adagrad"], None),
+    (["--interaction_type", "projection",
+      "--interaction_branch1_layer_sizes", "16,16"], None),
+    (["--weighted_pooling", "learned", "--adagrad"], "dense"),
+    (["--weighted_pooling", "fixed", "--embedding_impl", "stream"], None),
+    (["--weighted_pooling", "fixed"], "dense"),
+    (["--weighted_pooling", "learned", "--embedding_impl", "stream",
+      "--adagrad"], None),
+    (["--interaction_type", "dcn", "--dcn_num_layers", "1",
+      "--dcn_low_rank_dim", "4", "--embedding_impl", "fused"], "fused"),
+], ids=["fused", "dense", "dcn", "projection", "wp-auto", "wp-stream",
+        "wp-fixed-auto", "wp-learned-stream", "dcn-fused"])
+def test_parity_single_device_branches(jax_init, extra, path):
+    """Each branch that used to raise NotImplementedError, against the JAX
+    trainer on the same argv: random data through Multihot, 4 steps, val
+    and test. auto takes the stream path on these small tables (path None:
+    no line names a fused or dense step) and the dense step under weighted
+    pooling, as in JAX."""
+    j, t = _both(PARITY + extra)
+    _assert_parity(j, t)
+    _, out = _run(PARITY + extra)
+    named = re.findall(r"^embedding update: (\w+)", out, re.M)
+    assert named == ([] if path is None else [path])
+
+
+def test_auto_on_huge_tables_takes_the_fused_path(jax_init):
+    """auto picks fused where streaming the table every step costs more
+    than the batch's scatter (both trainers' cost models agree on these
+    4 x 2,000-row tables at batch 16), and matches the JAX trainer."""
+    argv = ["--limit_train_batches", "3", "--limit_val_batches", "2",
+            "--limit_test_batches", "2", "--batch_size", "16", *SMALL,
+            "--num_embeddings_per_feature", "2000,2000,2000,2000",
+            "--multi_hot_sizes", "1,1,1,1", "--adagrad",
+            "--learning_rate", "0.05"]
+    j, t = _both(argv)
+    _assert_parity(j, t)
+    _, out = _run(argv)
+    assert "embedding update: fused coalesce+scatter step" in out
 
 
 def test_multi_process_and_multi_device_raise(monkeypatch):
