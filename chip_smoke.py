@@ -87,10 +87,15 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      auto, the MLPerf DLRM-v2 DCN (3 layers, rank 512), --adagrad, batch
      16,384, 12 steps and 2 + 2 eval batches: auto must choose the fused
      step; coalesce_rows and row_scatter_add launched once per step and
-     nothing else; 0 synchronizing calls past the first step; then both
-     kernels on the first from-disk batch against their plain versions,
-     bit for bit, timed beside them, their bounds and library yardsticks;
-     the fused step twice from the same state, the same bits; its profile.
+     nothing else; 0 synchronizing calls past the first step; the fused
+     step's cost per hit; then both kernels on the first from-disk batch
+     against their plain versions, bit for bit, timed beside them, their
+     bounds and library yardsticks; coalesce_rows against its plain
+     version, bit for bit and called twice for the same bits, on runs of
+     C - 1, C, C + 1 and 3C + 17 hits (C its chunk length) and of 65,275
+     and 262,144 hits at d 8 to 512, weighted and not, and timed on the two
+     long runs; the fused step twice from the same state, the same bits;
+     its profile.
      On phase 6's days: (b) the dense step with the projection interaction
      (no kernel of the port), (c) the stream path with bf16 tables and
      learned v_w (K2 once per step), each with 0 syncs past the first step;
@@ -1646,6 +1651,19 @@ def phase_c1_tower():
         x = out
 
 
+def device_busy_ms(fn, n):
+    """Device time a call of fn over n calls (torch.profiler, the sum of
+    its kernels' times); 0.0 where the profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
+
+
 def check_no_late_syncs(tag, probe):
     late = [len(s) for s in probe.syncs[1:]]
     check(not any(late), f"{tag}: synchronizing calls past the first step: "
@@ -1683,14 +1701,20 @@ def fused_kernels_vs_plain(data, model, launches):
         return F.embedding_bag(bag_s, dly, starts, mode="sum",
                                per_sample_weights=w_s)
 
+    split = int((torch.bincount(seg) > su.COALESCE_CHUNK).sum())
     lib_err = float((library() - G[:runs]).abs().max())
     ms = time_ms(lambda: su.coalesce_rows(r_s, seg, bag_s, w_s, dly, total),
                  CUDA, 10)
     plain_ms = time_ms(lambda: su.coalesce_rows_plain(
         r_s, seg, bag_s, w_s, dly, total), CUDA, 1)
     lib_ms = time_ms(library, CUDA, 10)
+    dev_ms = device_busy_ms(
+        lambda: su.coalesce_rows(r_s, seg, bag_s, w_s, dly, total), 10)
+    log(f"phase 7a: coalesce_rows {ms:.4f} ms a call (events), "
+        f"{dev_ms:.4f} ms of device time (profiler)")
     log(f"phase 7a: coalesce_rows on the first from-disk batch ({n} hits, "
-        f"{runs} touched rows, the longest run {longest} hits) "
+        f"{runs} touched rows, the longest run {longest} hits, {split} runs "
+        f"longer than C = {su.COALESCE_CHUNK} summed in chunks) "
         f"bit-identical to its plain version; F.embedding_bag over the same "
         f"runs within {lib_err:.3e}")
     # bytes: rows, runs, bags and weights read once, every dly row once,
@@ -1731,6 +1755,75 @@ def fused_kernels_vs_plain(data, model, launches):
         4 * n + 3 * runs * d * 4, runs * d, lib_ms))
     del table, delta
     return batch, entries
+
+
+def long_run_hits(lengths, d, weighted, seed):
+    """Sorted hits (r_s, seg, bag_s, w_s) and a [4096, d] dly on the card:
+    before each run of lengths[i] hits of one row, short runs of C hits in
+    all (so the first long run starts at slot C) or 37 hits (an odd
+    start). Rows are below 1,000 * len(lengths)."""
+    c = su.COALESCE_CHUNK
+    rng = np.random.default_rng(seed)
+    parts = []
+    for i, length in enumerate(lengths):
+        parts.append(rng.integers(1000 * i, 1000 * i + 90, 37 if i else c))
+        parts.append(np.full(length, 1000 * i + 500))
+    r = np.sort(np.concatenate(parts)).astype(np.int32)
+    head = np.ones(r.size, bool)
+    head[1:] = r[1:] != r[:-1]
+    seg = (np.cumsum(head) - 1).astype(np.int32)
+    bag = rng.integers(0, 4096, r.size).astype(np.int32)
+    w = rng.uniform(0.5, 1.5, r.size).astype(np.float32)
+    dly = rng.normal(size=(4096, d)).astype(np.float32)
+    on = lambda a: torch.from_numpy(a).to(CUDA)  # noqa: E731
+    return on(r), on(seg), on(bag), on(w) if weighted else None, on(dly)
+
+
+def long_runs_vs_plain():
+    """coalesce_rows against its plain version, bit for bit, and called
+    twice for the same bits, on runs around the chunk length C (two runs
+    each, one starting at a multiple of C, one at an odd slot) and on one
+    run of 65,275 hits (7a's longest) and one of 262,144; d 8, 128, 256,
+    512; weighted and not. Then its time on the two long runs (d = 128,
+    weighted), by CUDA events and by device time, beside each call's
+    bytes bound."""
+    c = su.COALESCE_CHUNK
+    cases = 0
+    for lengths in ((c - 1,) * 2, (c,) * 2, (c + 1,) * 2,
+                    (3 * c + 17,) * 2, (65_275,), (262_144,)):
+        for d in (8, 128, 256, 512):
+            for weighted in (True, False):
+                args = long_run_hits(lengths, d, weighted, lengths[0] + d)
+                total = 1000 * len(lengths)
+                g1, u1 = su.coalesce_rows(*args, total)
+                g2, u2 = su.coalesce_rows(*args, total)
+                gp, up = su.coalesce_rows_plain(*args, total)
+                tag = f"phase 7a coalesce_rows runs {lengths} d {d} " \
+                      f"weighted {weighted}"
+                _held(tag, g1, gp)
+                check(torch.equal(g1, g2) and torch.equal(u1, u2)
+                      and torch.equal(u1, up),
+                      f"{tag}: two calls or the rows differ")
+                cases += 1
+    log(f"phase 7a: coalesce_rows bit-identical to its plain version and "
+        f"to itself on a second call in {cases} cases (runs of C - 1, C, "
+        f"C + 1 and 3C + 17 hits with C = {c}, and of 65,275 and 262,144; "
+        f"d 8-512; weighted and not)")
+    times = {}
+    for length in (65_275, 262_144):
+        args = long_run_hits((length,), 128, True, 7)
+        call = functools.partial(su.coalesce_rows, *args, 1000)
+        times[length] = (time_ms(call, CUDA, 20), device_busy_ms(call, 20))
+        n = args[0].numel()
+        nbytes = 16 * n + args[4].numel() * 4 + n * 128 * 4 + 4 * n
+        log(f"phase 7a: coalesce_rows on one run of {length:,} hits ({n} "
+            f"slots, d 128, weighted): {times[length][0]:.4f} ms a call "
+            f"(CUDA events over 20 calls, the wrapper's host time included), "
+            f"{times[length][1]:.4f} ms of device time a call (profiler); "
+            f"bytes bound {bound(nbytes, 2 * n * 128)[0]:.4f} ms")
+    (a, da), (b, db) = times[65_275], times[262_144]
+    log(f"phase 7a: coalesce_rows at 262,144 hits over 65,275: {b / a:.2f}x "
+        f"(events), {db / da:.2f}x (device time), for 4.02x the hits")
 
 
 def same_bits_twice(model, batch):
@@ -1800,11 +1893,18 @@ def phase_other_paths(root, data_v2):
         f"step at the Criteo Kaggle counts ({sum(KAGGLE)} rows, "
         f"{sum(KAGGLE) * 128 * 4 / 1e9:.1f} GB in fp32)")
     report_steps("phase 7a", probe, steps, BATCH)
+    span = float(np.median([a.elapsed_time(b) for a, b in probe.spans]))
+    hits = BATCH * sum(V2_HOT_SIZES)
+    log(f"phase 7a: the fused step's cost per hit: median span {span:.3f} "
+        f"ms over {hits} hits a step, {span / hits * 1e6:.3f} ns a hit "
+        f"(the cost model's SCATTER_S_PER_HIT: "
+        f"{v2_main.SCATTER_S_PER_HIT * 1e9:.2f} ns)")
     check_no_late_syncs("phase 7a", probe)
     torch.cuda.empty_cache()
     model = dcn_model(KAGGLE)
     batch, entries = fused_kernels_vs_plain(data, model, steps)
     torch.cuda.empty_cache()
+    long_runs_vs_plain()
     same_bits_twice(model, batch)
     del batch
     torch.cuda.empty_cache()

@@ -17,11 +17,14 @@ unique count on the host: nothing here calls unique, nonzero or item().
 
 The kernels (csrc/*.cu, built and launched as K1-K4 are):
   coalesce_rows     step 2 and the gather and weighting of each hit's
-                    cotangent row, in slot order (csrc/coalesce_rows.cu). A
-                    port-side kernel with no TPU counterpart: the JAX
-                    package leaves the sum to XLA's segment_sum. On the
-                    card index_add_'s atomics would add in another order
-                    on every run.
+                    cotangent row, in a fixed order (csrc/coalesce_rows.cu):
+                    a run of up to COALESCE_CHUNK hits in slot order (the
+                    bits of the JAX package's segment_sum on the CPU), a
+                    longer run as slot-order chunks of COALESCE_CHUNK hits
+                    added in chunk order. A port-side kernel with no TPU
+                    counterpart: the JAX package leaves the sum to XLA's
+                    segment_sum. On the card index_add_'s atomics would add
+                    in another order on every run.
   row_scatter_add_  the table update, table[urows] += delta on unique rows,
                     skipping rows outside the table
                     (ops/probe_kernels.py, csrc/probe_rows.cu; the port of
@@ -39,6 +42,7 @@ and returned.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -51,6 +55,7 @@ from dlrm_tpu_torch.ops.stream_kernels import (
     _check_rows4,
     _device,
     _launch,
+    kernel_library,
     register_kernels,
 )
 from dlrm_tpu_torch.optim.optimizers import ADAGRAD_EPS
@@ -61,30 +66,57 @@ register_kernels({
     "coalesce_rows": ("coalesce_rows", "coalesce_rows", [
         _P, _P, _P, _P, _P,  # r_s, seg, bag_s, w_s (or null), dly
         ctypes.c_int64, ctypes.c_int, ctypes.c_int64,  # n, d, total_rows
-        _P, _P, _P,  # G, urows, stream
+        _P, _P, _P, _P,  # G, urows, scratch: start, partials
+        _P,  # stream
     ]),
 })
 _I32 = (torch.int32,)
 _F32 = (torch.float32,)
 MAX_ROW_WIDTH = 512  # coalesce_rows holds a row in registers
+# C: coalesce_rows sums a run of more than C hits as chunks of C in slot
+# order, then the chunks' sums in chunk order (kChunk in the kernel source)
+COALESCE_CHUNK = 512
 
 
 # ------------------------------------------------------------ the kernel
 def coalesce_rows_plain(r_s, seg, bag_s, w_s, dly, total_rows):
     """coalesce_rows' contract in plain PyTorch: each run's weighted rows
-    summed from zero in slot order (_add_in_rounds: the same bits on every
-    run and device), the slots past the last run zero and given rows past
-    the table. It reads the run count back to the host."""
+    cut into chunks of COALESCE_CHUNK slots from its head, each chunk
+    summed from zero in slot order, then each run's chunk sums added from
+    zero in chunk order (_add_in_rounds twice: the same bits on every run
+    and device; a run of one chunk keeps its slot-order bits, since 0 + x
+    is x for a sum that starts from +0). The slots past the last run are
+    zero and given rows past the table. It reads counts back to the
+    host."""
     n = r_s.numel()
     g = dly[bag_s.long()]
     if w_s is not None:
         g = g * w_s[:, None]
+    slot = torch.arange(n, device=r_s.device)
+    head = torch.ones((n,), dtype=torch.bool, device=r_s.device)
+    head[1:] = r_s[1:] != r_s[:-1]
+    run_start = torch.cummax(torch.where(head, slot, 0), 0).values
+    chunk_head = (slot - run_start) % COALESCE_CHUNK == 0
+    chunk = torch.cumsum(chunk_head, 0) - 1
+    P = torch.zeros((int(chunk[-1]) + 1 if n else 0, dly.shape[1]),
+                    dtype=torch.float32, device=dly.device)
+    _add_in_rounds(P, chunk, g)
     G = torch.zeros((n, dly.shape[1]), dtype=torch.float32,
                     device=dly.device)
-    _add_in_rounds(G, seg.long(), g)
-    urows = (total_rows + torch.arange(n, device=r_s.device)).int()
+    _add_in_rounds(G, seg.long()[chunk_head], P)
+    urows = (total_rows + slot).int()
     urows[seg.long()] = r_s
     return G, urows
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_chunk() -> int:
+    """The kernel's C, checked once against COALESCE_CHUNK."""
+    c = kernel_library("coalesce_rows").coalesce_chunk()
+    if c != COALESCE_CHUNK:
+        raise RuntimeError(f"csrc/coalesce_rows.cu sums chunks of {c} hits, "
+                           f"sparse_update.COALESCE_CHUNK is {COALESCE_CHUNK}")
+    return c
 
 
 def coalesce_rows(
@@ -96,8 +128,10 @@ def coalesce_rows(
     total_rows: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:  # G [n, d] f32, urows [n] int32
     """G[seg[k]] = sum of dly[bag_s[j]] * w_s[j] over the run of r_s[k]'s
-    row, in slot order; urows[seg[k]] = r_s[k]; the slots past the last run
-    are zero with urows = total_rows + slot."""
+    row: in slot order for a run of up to COALESCE_CHUNK hits, else the
+    slot-order sums of its chunks of COALESCE_CHUNK hits added in chunk
+    order; urows[seg[k]] = r_s[k]; the slots past the last run are zero
+    with urows = total_rows + slot."""
     n = r_s.numel()
     for name, t in (("r_s", r_s), ("seg", seg), ("bag_s", bag_s)):
         _check(name, t, _I32, shape=(n,))
@@ -120,10 +154,15 @@ def coalesce_rows(
     G = torch.empty((n, d), dtype=torch.float32, device=dev)
     urows = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
+        c = _kernel_chunk()
+        # scratch: each run's first slot, and the chunk sums of the runs
+        # longer than C (two rows for each window of C slots)
+        start = torch.empty((n,), dtype=torch.int32, device=dev)
+        P = torch.empty((2 * -(-n // c), d), dtype=torch.float32, device=dev)
         _launch("coalesce_rows", dev, r_s.data_ptr(), seg.data_ptr(),
                 bag_s.data_ptr(), 0 if w_s is None else w_s.data_ptr(),
                 dly.data_ptr(), n, d, int(total_rows), G.data_ptr(),
-                urows.data_ptr())
+                urows.data_ptr(), start.data_ptr(), P.data_ptr())
     return G, urows
 
 

@@ -5,10 +5,13 @@ nothing of JAX, so on a machine without JAX it runs as
 `python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_fused.py`.
 chip_smoke.py phase 7 runs the same comparisons at the trainer's shapes.
 
-coalesce_rows adds each run's weighted rows in slot order with the same
+coalesce_rows adds each run's weighted rows in a fixed order with the same
 roundings as its plain version (which adds them in rounds, one term per
-row at a time, with no conflicting writes): the same bits, on every
-call."""
+row at a time, with no conflicting writes): a run of up to COALESCE_CHUNK
+(C) hits in slot order, a longer one as chunks of C hits in slot order
+added in chunk order. The same bits, on every call, for runs around C and
+for runs of 65,275 hits (the longest at the Criteo Kaggle counts) and
+262,144."""
 
 import numpy as np
 import pytest
@@ -61,6 +64,51 @@ def test_coalesce_rows_matches_plain(dev, d, weighted, skew):
     torch.cuda.synchronize()
     assert tk.LAUNCHES["coalesce_rows"] == n0 + 2
     gp, up = su.coalesce_rows_plain(r_s, seg, bag_s, w_s, dly, 9_000)
+    assert torch.equal(u1, up) and torch.equal(u1, u2)
+    assert torch.equal(g1, gp) and torch.equal(g1, g2)
+
+
+C = su.COALESCE_CHUNK
+
+
+def _long_runs(dev, lengths, d, weighted, seed):
+    """Sorted hits (r_s, seg, bag_s, w_s) and a [4096, d] dly: before each
+    run of lengths[i] hits, short runs of C hits in all (so the first long
+    run starts at slot C) or 37 hits (an odd start)."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for i, length in enumerate(lengths):
+        parts.append(rng.integers(1000 * i, 1000 * i + 90, 37 if i else C))
+        parts.append(np.full(length, 1000 * i + 500))
+    r = np.sort(np.concatenate(parts)).astype(np.int32)
+    n = r.size
+    head = np.ones(n, bool)
+    head[1:] = r[1:] != r[:-1]
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    seg = (np.cumsum(head) - 1).astype(np.int32)
+    bag = rng.integers(0, 4096, n).astype(np.int32)
+    w = (t(rng.uniform(0.5, 1.5, n).astype(np.float32)) if weighted
+         else None)
+    dly = torch.from_numpy(rng.normal(size=(4096, d)).astype(np.float32))
+    return t(r), t(seg), t(bag), w, dly.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 128, 256, 512])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("lengths", [
+    (C - 1, C - 1), (C, C), (C + 1, C + 1), (3 * C + 17, 3 * C + 17),
+    (65_275,), (262_144,)], ids=lambda v: f"runs{v[0]}x{len(v)}")
+def test_coalesce_rows_long_runs_match_plain(dev, lengths, weighted, d):
+    r_s, seg, bag_s, w_s, dly = _long_runs(dev, lengths, d, weighted,
+                                           seed=lengths[0] + d)
+    total = 1000 * len(lengths)
+    n0 = tk.LAUNCHES["coalesce_rows"]
+    g1, u1 = su.coalesce_rows(r_s, seg, bag_s, w_s, dly, total)
+    g2, u2 = su.coalesce_rows(r_s, seg, bag_s, w_s, dly, total)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["coalesce_rows"] == n0 + 2
+    gp, up = su.coalesce_rows_plain(r_s, seg, bag_s, w_s, dly, total)
     assert torch.equal(u1, up) and torch.equal(u1, u2)
     assert torch.equal(g1, gp) and torch.equal(g1, g2)
 

@@ -30,6 +30,18 @@ from dlrm_tpu_torch.optim.optimizers import init_opt_state
 from dlrm_tpu_torch.train import fused_step as tfused
 from dlrm_tpu_torch.train import step as tstep
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the plain versions run thousands of tiny ops,
+    and with several test processes on one machine the threads of each op
+    only contend (the bits do not depend on it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KW = dict(
     embedding_dim=8,
     table_sizes=(40, 7, 100),  # tiny table 7 -> guaranteed duplicate hits
@@ -142,6 +154,32 @@ def test_fused_heavy_duplicates():
                                    other_p["emb"]["stacked"], **TOL)
         np.testing.assert_allclose(fs["accum"]["emb"]["stacked"],
                                    other_s["accum"]["emb"]["stacked"], **TOL)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rwsadagrad"])
+def test_fused_runs_longer_than_a_chunk_match_jax(optimizer):
+    """Table 1's hits all on two rows, about 1,280 hits a row at batch 512:
+    runs longer than twice the coalescing chunk (COALESCE_CHUNK hits),
+    which the port sums in chunks and JAX in slot order. The port's fused
+    step holds to JAX's and to its own dense step at TOL."""
+    from dlrm_tpu_torch.ops.sparse_update import COALESCE_CHUNK
+    params0 = _params(6)
+    rng = np.random.default_rng(7)
+    hb = fixed_multihot_batch(rng, 4, KW["table_sizes"], 512, 5)
+    idx = hb.idx.copy()
+    idx[1] %= 2
+    hb = dataclasses.replace(hb, idx=idx)
+    assert np.bincount(idx[1].ravel()).min() > 2 * COALESCE_CHUNK
+    fp, fs, fl = _run_port(tfused.make_fused_train_step, optimizer, params0,
+                           [_port(hb)])
+    dp, ds, dl = _run_port(tstep.make_train_step, optimizer, params0,
+                           [_port(hb)])
+    jp, js, jl = _run_jax(jfused.make_fused_train_step, optimizer, params0,
+                          [hb.to_device()])
+    for other_p, other_s, other_l in ((dp, ds, dl), (jp, js, jl)):
+        np.testing.assert_allclose(fl, other_l, rtol=1e-5)
+        _assert_trees(fp, other_p)
+        _assert_trees(fs, other_s)
 
 
 def _stacked(hbs):

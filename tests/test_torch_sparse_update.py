@@ -6,7 +6,16 @@ each row's hits in hit order from zero, so the coalesced grads are
 bit-equal; the appliers are held to the fused-step tests' atol 3e-6 (the
 row means of G^2 are reduced in another order). Plus the flat per-hit
 layout against the padded one, and row_scatter_add_'s plain version
-skipping rows outside the table, as the card kernel does."""
+skipping rows outside the table, as the card kernel does.
+
+A run of more than COALESCE_CHUNK (C) hits is summed in a fixed two-level
+order: chunks of C hits in slot order, then the chunks in order. The plain
+version equals a numpy loop written out in that order, bit for bit; against
+JAX's slot-order segment_sum, runs of up to C hits stay bit-equal and the
+longer runs are held to the bound of two recursive fp32 sums."""
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +25,18 @@ import torch
 from dlrm_tpu.ops import sparse_update as js
 from dlrm_tpu_torch.ops import probe_kernels as pk
 from dlrm_tpu_torch.ops import sparse_update as ts
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the plain versions run thousands of tiny ops,
+    and with several test processes on one machine the threads of each op
+    only contend (the bits do not depend on it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SIZES = (40, 7, 100)  # the tiny table guarantees duplicate hits
 OFFS = np.concatenate([[0], np.cumsum(SIZES)[:-1]]).astype(np.int32)
@@ -236,3 +257,130 @@ def test_row_scatter_add_plain_skips_rows_outside_the_table():
     jt = jnp.asarray(np.arange(24, dtype=np.float32).reshape(6, 4)).at[
         jnp.asarray(idx.numpy()[keep])].add(jnp.ones((4, 4)), mode="drop")
     np.testing.assert_array_equal(table.numpy(), np.asarray(jt))
+
+
+C = ts.COALESCE_CHUNK
+
+
+def test_coalesce_chunk_matches_the_kernel_source():
+    """COALESCE_CHUNK is the kernel's compile-time kChunk, a power of two."""
+    src = os.path.join(os.path.dirname(ts.__file__), os.pardir, "csrc",
+                       "coalesce_rows.cu")
+    with open(src) as f:
+        m = re.search(r"constexpr int kChunk = (\d+);", f.read())
+    assert m is not None and int(m.group(1)) == C
+    assert C & (C - 1) == 0 and 128 <= C <= 1024
+
+
+def _two_level(r_s, bag_s, w_s, dly, total_rows):
+    """coalesce_rows' contract written out in numpy float32: each run cut
+    into chunks of C slots from its head, each chunk summed from zero in
+    slot order, the chunk sums added from zero in chunk order."""
+    n, d = len(r_s), dly.shape[1]
+    G = np.zeros((n, d), np.float32)
+    urows = (total_rows + np.arange(n)).astype(np.int32)
+    run, k = 0, 0
+    while k < n:
+        e = k
+        while e < n and r_s[e] == r_s[k]:
+            e += 1
+        urows[run] = r_s[k]
+        total = np.zeros(d, np.float32)
+        for c0 in range(k, e, C):
+            part = np.zeros(d, np.float32)
+            for j in range(c0, min(c0 + C, e)):
+                t = dly[bag_s[j]]
+                part = part + (t if w_s is None else t * w_s[j])
+            total = total + part
+        G[run] = total
+        run, k = run + 1, e
+    return G, urows
+
+
+def _long_runs(length, d, weighted, seed):
+    """Sorted hits with short runs around two runs of `length` hits, one
+    starting at slot C (a multiple of C) and one at an odd slot; their bag
+    rows in a [64, d] dly, and weights."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(np.concatenate([
+        rng.integers(0, 90, C), np.full(length, 100),
+        rng.integers(200, 290, 37), np.full(length, 300),
+        rng.integers(400, 490, 50)])).astype(np.int32)
+    n = rows.size
+    head = np.ones(n, bool)
+    head[1:] = rows[1:] != rows[:-1]
+    seg = (np.cumsum(head) - 1).astype(np.int32)
+    bag = rng.integers(0, 64, n).astype(np.int32)
+    w = rng.uniform(0.5, 1.5, n).astype(np.float32) if weighted else None
+    dly = rng.normal(size=(64, d)).astype(np.float32)
+    return rows, seg, bag, w, dly
+
+
+@pytest.mark.parametrize("d", [8, 128])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("length", [C - 1, C, C + 1, 2 * C, 3 * C + 17, 5000])
+def test_coalesce_rows_plain_two_level_order(length, weighted, d):
+    """coalesce_rows_plain equals the two-level order written out in numpy,
+    bit for bit; past 2C hits that order is not the slot order's."""
+    r_s, seg, bag, w, dly = _long_runs(length, d, weighted, seed=length + d)
+    G, urows = ts.coalesce_rows_plain(
+        _t(r_s), _t(seg), _t(bag), None if w is None else _t(w), _t(dly),
+        500)
+    want_G, want_u = _two_level(r_s, bag, w, dly, 500)
+    np.testing.assert_array_equal(urows.numpy(), want_u)
+    np.testing.assert_array_equal(G.numpy(), want_G)
+    if length > 2 * C and d == 128:
+        one = r_s == 100
+        t = dly[bag[one]] * (1.0 if w is None else w[one][:, None])
+        flat = np.zeros(d, np.float32)
+        for row in t:
+            flat = flat + row
+        assert not np.array_equal(G.numpy()[seg[one][0]], flat)
+
+
+@pytest.mark.parametrize("weights", ["random", "none", "padded"])
+def test_coalesce_hits_long_runs_against_jax(weights):
+    """A 2-row table takes ~1,000 hits a row, past C; the others' runs stay
+    short. Runs of up to C hits are bit-equal to JAX's segment_sum; each
+    element of a longer run of L hits is within (L - 1) * 2^-23 * sum|t_j|
+    of it: two recursive fp32 sums of the same L terms t_j, each within
+    (L - 1) * 2^-24 * sum|t_j| of the exact sum, in whatever order."""
+    rng = np.random.default_rng(13)
+    sizes, b, h, d = (2, 40, 1000), 400, 5, 16
+    offs = np.array([0, 2, 42], np.int32)
+    idx = np.stack([rng.integers(0, n, (b, h)) for n in sizes]
+                   ).astype(np.int32)
+    wt = None
+    if weights == "random":
+        wt = rng.uniform(0.5, 1.5, idx.shape).astype(np.float32)
+    elif weights == "padded":
+        wt = np.ones(idx.shape, np.float32)
+        wt[:, :, 3:] = 0.0
+    dp = rng.normal(size=(b, len(sizes), d)).astype(np.float32)
+    ju, jg, jv = js.coalesce_hits(
+        jnp.asarray(dp), jnp.asarray(idx),
+        None if wt is None else jnp.asarray(wt), jnp.asarray(offs),
+        sum(sizes))
+    tu, tg, tv = ts.coalesce_hits(_t(dp), _t(idx),
+                                  None if wt is None else _t(wt), _t(offs),
+                                  sum(sizes))
+    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    # per touched row: its hit count L and sum |t_j| per column
+    rows = (idx + offs[:, None, None]).reshape(len(sizes), -1)
+    w = np.ones(idx.shape, np.float32) if wt is None else wt
+    t = (dp.transpose(1, 0, 2)[:, :, None, :] * w[..., None]).reshape(
+        len(sizes), -1, d)
+    jg, tg = np.asarray(jg), tg.numpy()
+    long_runs = 0
+    for i, row in enumerate(tu.numpy()[:int(tv.sum())]):
+        tbl = int(np.searchsorted(offs, row, side="right")) - 1
+        hit = rows[tbl] == row
+        L = int(hit.sum())
+        if L <= C:
+            np.testing.assert_array_equal(tg[i], jg[i])
+        else:
+            long_runs += 1
+            bound = (L - 1) * 2.0**-23 * np.abs(t[tbl][hit]).sum(0)
+            assert (np.abs(tg[i] - jg[i]) <= bound).all(), row
+    assert long_runs == 2
