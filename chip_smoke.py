@@ -6,7 +6,8 @@ one-hot-grads path (K3, K4, K1 and K2); then the probes, the DLRM-v2
 trainer (v2_main.main) from disk and on random data, and the trainer's
 other single-device paths: the fused coalesce+scatter step (coalesce_rows
 and row_scatter_add) that --embedding_impl auto picks on large tables, the
-dense autograd step, and weighted pooling on the stream path.
+dense autograd step, and weighted pooling on the stream path; then the v1
+trainer (cli.main) on the reference's scripts.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -101,10 +102,40 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      learned v_w (K2 once per step), each with 0 syncs past the first step;
      (d) one fused and one dense step from the same params within atol
      3e-6, and the dense step's profile.
+  8. the v1 trainer, dlrm_tpu_torch/cli.py, through cli.main (the harness's
+     train step probed: CUDA events and syncs per step; every launch count
+     set to 0 before each run). (a) bench_scripts/dlrm_tpu_benchmark.sh's
+     shape at mini-batch 2,048: 8 tables x 1,000,000 rows, d 64, MLPs
+     512-512-64 and 1024-1024-1024-1, 100 indices per lookup (fixed), bf16
+     compute, random data, 20 steps: the harness's ms/it, the spans, 0
+     syncs past the first step, coalesce_rows and row_scatter_add once per
+     step, the host's draw of one batch. (b) bench_scripts/run_and_time.sh
+     (d 128, MLPs 13-512-256-128 and 1024-1024-512-256-1, sgd lr 1.0, batch
+     2,048, test batch 16,384, --mlperf-logging) on 24 Criteo-format raw
+     days of 8,192 rows drawn from a seed with a planted signal, through the
+     port's preprocessing (the g++ parser), bins and CriteoBinFile: 92 steps
+     with evaluations after steps 46 and 92 (AUC lines, the MLPerf events
+     from cache_clear to run_stop), a --save-model checkpoint, then a
+     --load-model run from step 46's checkpoint whose losses for steps
+     47-92 equal the first run's bit for bit; both kernels once per step.
+     (c) QR (mult, add, concat) and MD tables at the Criteo Kaggle counts
+     and bench_scripts/dlrm_criteo_kaggle.sh's widths (d 16, MLPs
+     13-512-256-64-16 and 512-256-1), batch 128, random data: 3 dense steps
+     each with finite losses and 0 syncs past the first; then on tables of
+     at most 100,000 rows the same 3 steps on the card and on the CPU from
+     one init, losses within rtol 1e-5 and parameters within rtol 1e-4 /
+     atol 1e-5. (d) the four golden configs of test_scripts/dlrm_tpu_test.sh
+     on the card: every loss line within 5e-6 of its golden log. In 8a
+     (one trainer step on a batch of the run's shape, after the run, so
+     that the copies do not count in its peak memory) and 8d (every step)
+     each call of coalesce_rows and row_scatter_add is copied and its plain
+     version run on the same inputs: equal bit for bit.
 The last two lines are the kernels JSON (14 kernels: phase 7 adds
-coalesce_rows and row_scatter_add at the fused step's shape) and
-{"ok": true, "device": ...}. The whole run takes about 2.5 minutes on one
-H100, builds included.
+coalesce_rows and row_scatter_add at the fused step's shape; their
+`launches` are phase 7a's, and `launches_by_path` gives 7a's and each
+phase-8 run's, each read just after its own reset to 0) and {"ok": true,
+"device": ...}. The whole
+run takes about 3-4 minutes on one H100, builds included.
 """
 
 from __future__ import annotations
@@ -118,6 +149,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -132,7 +164,7 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from dlrm_tpu_torch import v2_main
+from dlrm_tpu_torch import cli, v2_main
 from dlrm_tpu_torch.config import DCNConfig, DLRMConfig
 from dlrm_tpu_torch.configs.presets import CRITEO_KAGGLE_COUNTS
 from dlrm_tpu_torch.data.multi_hot_criteo import (
@@ -142,6 +174,7 @@ from dlrm_tpu_torch.data.multi_hot_criteo import (
 from dlrm_tpu_torch.data.random_data import (
     V2_HOT_SIZES,
     HostBatch,
+    RandomDataset,
     ragged_multihot_batch,
 )
 from dlrm_tpu_torch.models.dlrm import DLRMModel
@@ -175,8 +208,13 @@ from dlrm_tpu_torch.probes import (
     scan_probe as p1,
     stream_variants as p2,
 )
-from dlrm_tpu_torch.optim.optimizers import init_opt_state, tree_leaves
+from dlrm_tpu_torch.optim.optimizers import (
+    init_opt_state,
+    tree_leaves,
+    tree_map,
+)
 from dlrm_tpu_torch.probes.common import time_ms
+from dlrm_tpu_torch.train import harness
 from dlrm_tpu_torch.train.fused_step import make_fused_train_step
 from dlrm_tpu_torch.train.pipeline import DevicePrefetcher
 from dlrm_tpu_torch.train.step import make_train_step
@@ -583,9 +621,13 @@ def profile_steps(tag, step, params, opt_state, batch, n=3):
             step(params, opt_state, batch, LR)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # kernels and copies only: a record_function range shows on the device
+    # too (a user annotation), and its time overlaps its kernels'
+    labels = {e.key for e in prof.events()
+              if getattr(e, "is_user_annotation", False)}
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0 and e.key not in labels]
     busy = sum(e.self_device_time_total for e in kernels)
     if busy == 0:
         log(f"{tag} profile: no device time recorded (not measured)")
@@ -1339,15 +1381,17 @@ def write_v2_dataset(root, tables=V2_TABLES, tag="phase 6"):
 
 
 class StepProbe:
-    """Wraps the trainer's train step (the one its `factory` builds): CUDA
-    events around each call on the current stream, and the synchronizing
+    """Wraps the train step that `factory` of `module` builds (a v2_main
+    factory by default; the harness's pick_train_step for the v1 trainer):
+    CUDA events around each call on the current stream, the synchronizing
     calls each call makes on the calling thread in sync debug mode (the
-    producer thread's own are not the step's)."""
+    producer thread's own are not the step's), and each step's loss tensor,
+    read only after the run."""
 
-    def __init__(self, factory="make_stream_train_step"):
-        self.spans, self.syncs = [], []
-        self.factory = factory
-        self.real = getattr(v2_main, factory)
+    def __init__(self, factory="make_stream_train_step", module=v2_main):
+        self.spans, self.syncs, self.losses = [], [], []
+        self.factory, self.module = factory, module
+        self.real = getattr(module, factory)
 
     def __enter__(self):
         def make(*args, **kw):
@@ -1363,15 +1407,16 @@ class StepProbe:
                 ev[1].record()
                 self.spans.append(ev)
                 self.syncs.append(caught)
+                self.losses.append(out[2])
                 return out
 
             return probed
 
-        setattr(v2_main, self.factory, make)
+        setattr(self.module, self.factory, make)
         return self
 
     def __exit__(self, *exc):
-        setattr(v2_main, self.factory, self.real)
+        setattr(self.module, self.factory, self.real)
 
 
 @contextlib.contextmanager
@@ -1927,6 +1972,432 @@ def phase_other_paths(root, data_v2):
     return entries
 
 
+# ------------------------------------------------------------- phase 8
+# the v1 trainer (dlrm_tpu_torch/cli.py) on the reference's scripts: the
+# benchmark shape (8a), the MLPerf run from Criteo-format days with a
+# checkpoint and its resume (8b), QR and MD tables at the Kaggle widths
+# (8c), the four golden configs (8d)
+FUSED = ("coalesce_rows", "row_scatter_add")
+V1_BENCH = [  # bench_scripts/dlrm_tpu_benchmark.sh at mini-batch 2,048
+    "--arch-sparse-feature-size=64",
+    "--arch-embedding-size=" + "-".join(["1000000"] * 8),
+    "--arch-mlp-bot=512-512-64", "--arch-mlp-top=1024-1024-1024-1",
+    "--data-generation=random", "--num-indices-per-lookup=100",
+    "--num-indices-per-lookup-fixed=1", "--num-batches=20",
+    "--print-freq=10", "--print-time", "--compute-dtype=bfloat16",
+    "--mini-batch-size=2048",
+]
+V1_DAYS, V1_DAY_ROWS = 24, 8192
+V1_BATCH = 2048
+# 92 train batches of 2,048 (days 0-22); evaluations after steps 46 and 92
+V1_STEPS = -(-(V1_DAYS - 1) * V1_DAY_ROWS // V1_BATCH)
+V1_TEST_FREQ = V1_STEPS // 2
+V1_KAGGLE = [  # bench_scripts/dlrm_criteo_kaggle.sh's widths, random data
+    "--arch-sparse-feature-size=16", "--arch-mlp-bot=13-512-256-64-16",
+    "--arch-mlp-top=512-256-1", "--data-generation=random",
+    "--loss-function=bce", "--round-targets=True", "--learning-rate=0.1",
+    "--mini-batch-size=128", "--num-batches=3", "--num-indices-per-lookup=10",
+    "--print-time",
+]
+V1_TRICKS = {"qr mult": ["--qr-flag", "--qr-operation=mult"],
+             "qr add": ["--qr-flag", "--qr-operation=add"],
+             "qr concat": ["--qr-flag", "--qr-operation=concat"],
+             "md": ["--md-flag"]}
+GOLDEN = {  # test_scripts/dlrm_tpu_test.sh
+    "tiny1": ["--mini-batch-size=1", "--data-size=1"],
+    "tiny2": ["--mini-batch-size=2", "--data-size=4", "--nepochs=2"],
+    "tiny3": ["--mini-batch-size=2", "--data-size=5", "--nepochs=3",
+              "--debug-mode"],
+    "tiny4": ["--mini-batch-size=2", "--data-size=6", "--loss-function=bce",
+              "--round-targets=True"],
+}
+TRAIN_LINE = re.compile(r"Finished training it (\d+)/(\d+) of epoch (\d+), "
+                        r"(\S+) ms/it, loss (\S+)")
+
+
+class FusedHold:
+    """Patches the fused step's two kernel wrappers, as ops/sparse_update
+    calls them, to copy the inputs and results of every call; each launch
+    stays the wrapper's own, so the launch counts are unchanged. hold()
+    then runs each plain version on the copied inputs and fails unless its
+    result equals the kernel's bit for bit."""
+
+    def __init__(self, tag):
+        self.tag = tag
+        self.calls = {k: [] for k in FUSED}
+        self.depth = 0  # coalesce_rows calls itself on rows padded to 4
+
+    def __enter__(self):
+        self.real = real_c, real_s = su.coalesce_rows, su.row_scatter_add_
+
+        def coalesce(r_s, seg, bag_s, w_s, dly, total_rows):
+            if self.depth:
+                return real_c(r_s, seg, bag_s, w_s, dly, total_rows)
+            args = [None if t is None else t.clone()
+                    for t in (r_s, seg, bag_s, w_s, dly)]
+            self.depth += 1
+            try:
+                G, urows = real_c(r_s, seg, bag_s, w_s, dly, total_rows)
+            finally:
+                self.depth -= 1
+            self.calls["coalesce_rows"].append(
+                (*args, total_rows, G.clone(), urows.clone()))
+            return G, urows
+
+        def scatter(table, idx, delta, **kw):
+            before = table.clone()
+            out = real_s(table, idx, delta, **kw)
+            self.calls["row_scatter_add"].append(
+                (before, idx.clone(), delta.clone(), table.clone()))
+            return out
+
+        su.coalesce_rows, su.row_scatter_add_ = coalesce, scatter
+        return self
+
+    def __exit__(self, *exc):
+        su.coalesce_rows, su.row_scatter_add_ = self.real
+
+    def hold(self):
+        for k in FUSED:
+            check(self.calls[k], f"{self.tag}: no call of {k} copied")
+        shapes = []
+        for r_s, seg, bag_s, w_s, dly, total, G, urows in \
+                self.calls["coalesce_rows"]:
+            G_p, urows_p = su.coalesce_rows_plain(r_s, seg, bag_s, w_s, dly,
+                                                  total)
+            check(torch.equal(G, G_p) and torch.equal(urows, urows_p),
+                  f"{self.tag} coalesce_rows: {r_s.numel()} hits at d "
+                  f"{dly.shape[1]} differ from the plain version "
+                  f"(max abs {float((G - G_p).abs().max()):.3e})")
+            shapes.append(f"{r_s.numel()} hits"
+                          + ("" if w_s is None else " weighted")
+                          + f" d {dly.shape[1]}")
+        for before, idx, delta, after in self.calls["row_scatter_add"]:
+            pk.row_scatter_add_plain(before, idx, delta)
+            check(torch.equal(before, after),
+                  f"{self.tag} row_scatter_add: {idx.numel()} slots into "
+                  f"{tuple(after.shape)} differ from the plain version")
+        sc = self.calls["row_scatter_add"][0]
+        log(f"{self.tag}: {len(shapes)} coalesce_rows calls "
+            f"({', '.join(sorted(set(shapes)))}) and "
+            f"{len(self.calls['row_scatter_add'])} row_scatter_add calls "
+            f"(the first {sc[1].numel()} slots into a {tuple(sc[3].shape)} "
+            "fp32 table) bit-identical to their plain versions on the same "
+            "inputs")
+
+
+def run_cli(tag, argv, per_step=FUSED, quiet=False, hold=None):
+    """cli.main(argv) on the card with every launch count set to 0 just
+    before and read just after, the harness's train step probed. Fails
+    unless it returns 0 with finite losses, each kernel of `per_step`
+    launched once per train step and no other kernel launched. Returns the
+    probe, the printed output, the launch counts and the losses (fp32, on
+    the host). With `hold` (a FusedHold), its copies are held to the plain
+    versions after the run."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tee = Tee(sys.stdout) if not quiet else Tee(io.StringIO())
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with StepProbe("pick_train_step", harness) as probe, \
+            hold or contextlib.nullcontext(), \
+            contextlib.redirect_stdout(tee):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = tee.buf.getvalue()
+    check(rc == 0, f"{tag}: cli.main returned {rc}")
+    steps = len(probe.spans)
+    check(steps > 0, f"{tag}: no train step ran")
+    losses = torch.stack(probe.losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"{tag}: non-finite loss")
+    for k in per_step:
+        check(launches[k] == steps,
+              f"{tag}: {k} launched {launches[k]} times in {steps} steps")
+    others = {k: v for k, v in launches.items() if v and k not in per_step}
+    check(not others, f"{tag}: kernels off this path launched: {others}")
+    log(f"{tag}: main() returned 0 in {wall:.1f} s: {steps} train steps, "
+        f"last loss {float(losses[-1]):.6f}; "
+        + (", ".join(f"{k} launched {launches[k]} times" for k in per_step)
+           or "no kernel of the port launched")
+        + f"; max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
+    if hold is not None:
+        hold.hold()
+    return probe, out, launches, losses
+
+
+def v1_bench():
+    """8a: the reference benchmark's shape through cli.main, 20 steps; the
+    harness's ms/it, each step's device span and syncs, both fused-step
+    kernels once per step, and the host's draw of one batch timed apart."""
+    tag = "phase 8a"
+    probe, out, launches, _ = run_cli(tag, V1_BENCH)
+    ms_it = [float(m[3]) for m in TRAIN_LINE.findall(out)]
+    check(len(ms_it) == 2 and all(x > 0 for x in ms_it),
+          f"{tag}: expected two ms/it lines, got {ms_it}")
+    log(f"{tag}: the harness's ms/it over steps 1-10 and 11-20: "
+        f"{ms_it[0]:.2f}, {ms_it[1]:.2f} (host time around each step call)")
+    report_steps(tag, probe, len(probe.spans), 2048)
+    check_no_late_syncs(tag, probe)
+    model_cfg, train_cfg = cli.configs_from_args(
+        cli.build_parser().parse_args(V1_BENCH))
+    ds = RandomDataset(model_cfg, train_cfg)
+    ds[0]
+    t0 = time.perf_counter()
+    hb = ds[1]
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    spans = [a.elapsed_time(b) for a, b in probe.spans]
+    span = float(np.median(spans))
+    log(f"{tag}: the host draws one batch ({hb.idx.size} slots, "
+        f"{int((hb.wt > 0).sum())} real hits; the reference's per-sample "
+        f"draw loop) in {draw_ms:.1f} ms against a median device span of "
+        f"{span:.2f} ms ({draw_ms / span:.1f}x)")
+    # where the device time goes: the trainer's step on that batch
+    model = DLRMModel(model_cfg)
+    params = model.init_params(seed=0, device=CUDA)
+    opt_state = init_opt_state(train_cfg.optimizer, params)
+    step = harness.pick_train_step(model, train_cfg)
+    batch = hb.to_device(CUDA)
+    with FusedHold(f"{tag} (one step on batch 1, after the run)") as fh:
+        step(params, opt_state, batch, LR)
+    fh.hold()
+    del fh
+    profile_steps(tag, step, params, opt_state, batch)
+    return {tag: launches}
+
+
+def write_raw_days(root):
+    """V1_DAYS Criteo-format raw tsv days of V1_DAY_ROWS rows (label, 13
+    ints, 26 hex) from a numpy seed, with the planted signal of
+    scripts/mlperf_proxy_run.py::generate_raw_days: the label is
+    Bernoulli(sigmoid(s)), s mixing a linear function of log1p(dense) with
+    per-value effects of the first two categorical columns."""
+    rng = np.random.default_rng(0)
+    w = rng.normal(0, 1.0, 13)
+    eff0, eff1 = rng.normal(0, 1.2, 40), rng.normal(0, 1.2, 40)
+    for d in range(V1_DAYS):
+        rng = np.random.default_rng(1000 + d)
+        n = V1_DAY_ROWS
+        dense = rng.integers(0, 200, size=(n, 13))
+        z = (np.log1p(dense) - 3.7) @ w / np.sqrt(13)
+        c0, c1 = rng.integers(0, 40, n), rng.integers(0, 40, n)
+        other = rng.integers(0, 1 << 20, size=(n, 24))
+        s = 1.5 * z + eff0[c0] + eff1[c1]
+        label = (rng.random(n) < 1.0 / (1.0 + np.exp(-s))).astype(int)
+        cats = np.concatenate([c0[:, None], c1[:, None], other], axis=1)
+        with open(os.path.join(root, f"day_{d}"), "w") as f:
+            for i in range(n):
+                f.write(f"{label[i]}\t" + "\t".join(map(str, dense[i]))
+                        + "\t" + "\t".join(format(v, "x") for v in cats[i])
+                        + "\n")
+
+
+def v1_mlperf_argv(root, extra=()):
+    """bench_scripts/run_and_time.sh on `root`'s days: every printed loss
+    per step, an evaluation every V1_TEST_FREQ steps, and an AUC threshold
+    of 1.0 (unreachable), so that the run evaluates twice and ends with
+    RUN_STOP aborted."""
+    return [
+        "--arch-sparse-feature-size=128", "--arch-mlp-bot=13-512-256-128",
+        "--arch-mlp-top=1024-1024-512-256-1", "--max-ind-range=40000000",
+        "--data-generation=dataset", "--data-set=terabyte",
+        f"--raw-data-file={root}/day",
+        f"--processed-data-file={root}/proc/ready",
+        "--loss-function=bce", "--round-targets=True", "--learning-rate=1.0",
+        f"--mini-batch-size={V1_BATCH}", "--print-freq=1", "--print-time",
+        f"--test-freq={V1_TEST_FREQ}", "--test-mini-batch-size=16384",
+        "--mlperf-logging", "--mlperf-auc-threshold=1.0",
+        "--mlperf-bin-loader", *extra,
+    ]
+
+
+def mlperf_events(out):
+    return [json.loads(line.split(":::MLLOG ", 1)[1])
+            for line in out.splitlines() if line.startswith(":::MLLOG")]
+
+
+def v1_mlperf(tmp):
+    """8b: the MLPerf v1 run through cli.main: the days drawn, preprocessed
+    (the port's g++ parser), binned and read by CriteoBinFile; 92 steps
+    with two evaluations and a --save-model checkpoint at each new best;
+    then a --load-model run from the first evaluation's checkpoint, whose
+    losses for the steps after it must equal the first run's bit for
+    bit."""
+    tag = "phase 8b"
+    root = os.path.join(tmp, "v1_mlperf")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    write_raw_days(root)
+    log(f"{tag}: {V1_DAYS} raw days of {V1_DAY_ROWS} rows drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ck = os.path.join(root, "ckpt")
+    saves = []
+    real_save = harness.Trainer.save
+
+    def save(self, state, path):  # keep each save's directory apart
+        real_save(self, state, path)
+        snap = f"{path}_{state.total_iter}"
+        shutil.copytree(path, snap)
+        saves.append((state.total_iter, snap))
+
+    harness.Trainer.save = save
+    try:
+        probe, out, launches, losses = run_cli(
+            tag, v1_mlperf_argv(root, [f"--save-model={ck}"]), quiet=True)
+    finally:
+        harness.Trainer.save = real_save
+    parsers = set(re.findall(r"criteo: parsed \S+ with the (\w+) parser",
+                             out))
+    check(parsers == {"native"}, f"{tag}: parsers {parsers}, not native")
+    steps, half = len(probe.spans), V1_TEST_FREQ
+    check(steps == V1_STEPS, f"{tag}: {steps} train steps, not {V1_STEPS}")
+    aucs = re.findall(rf"Testing at - (\d+)/{steps} of epoch 0, accuracy "
+                      r"(\S+) %, best \S+ %, auc (\S+), best auc (\S+)", out)
+    check([int(a[0]) for a in aucs] == [half, steps],
+          f"{tag}: evaluations {aucs}, not after steps {half} and {steps}")
+    keys = [e["key"] for e in mlperf_events(out)]
+    check(keys[:4] == ["cache_clear", "init_start", "init_stop", "run_start"]
+          and keys.count("eval_accuracy") == 2 and keys[-1] == "run_stop",
+          f"{tag}: MLPerf events {keys}")
+    check(saves and saves[0][0] == V1_TEST_FREQ,
+          f"{tag}: no checkpoint at the first evaluation ({saves})")
+    log(f"{tag}: the {V1_DAYS} days parsed by the native parser")
+    shown = ("Testing at", "Saved model", f"Finished training it {half}/",
+             f"Finished training it {steps}/")
+    for line in out.splitlines():
+        if line.startswith(shown):
+            log(f"{tag}: | {line}")
+    events = mlperf_events(out)
+    log(f"{tag}: {len(keys)} MLPerf events: " + " ".join(keys))
+    log(f"{tag}: | :::MLLOG {json.dumps(events[-1])}")
+    log(f"{tag}: checkpoints saved after steps {[s[0] for s in saves]}")
+    report_steps(tag, probe, steps, V1_BATCH)
+    check_no_late_syncs(tag, probe)
+
+    probe2, out2, launches2, losses2 = run_cli(
+        f"{tag} resumed", v1_mlperf_argv(root, [f"--load-model={saves[0][1]}"]),
+        quiet=True)
+    check(f"Loaded model from {saves[0][1]}: epoch 0 iteration {half}"
+          in out2, f"{tag}: the resumed run did not load the checkpoint")
+    first = {m[0]: m[4] for m in TRAIN_LINE.findall(out)}
+    second = {m[0]: m[4] for m in TRAIN_LINE.findall(out2)}
+    after = [str(i) for i in range(half + 1, steps + 1)]
+    check(sorted(second, key=int) == after,
+          f"{tag}: the resumed run printed iterations {sorted(second)}")
+    check([first[i] for i in after] == [second[i] for i in after]
+          and torch.equal(losses[half:], losses2),
+          f"{tag}: the resumed run's losses differ from the uninterrupted "
+          "run's")
+    log(f"{tag}: resumed from the checkpoint of step {half}: the losses of "
+        f"steps {half + 1}-{steps} equal the uninterrupted run's bit for "
+        f"bit (printed and as fp32 tensors; last {float(losses2[-1]):.6f})")
+    return {tag: launches, f"{tag} resumed": launches2}
+
+
+def cpu_card_agree(tag, argv):
+    """The trainer's 3 steps from one init, on the card and on the CPU:
+    losses within rtol 1e-5, every parameter within rtol 1e-4 / atol 1e-5
+    (the CPU tests' value and gradient tolerances)."""
+    model_cfg, train_cfg = cli.configs_from_args(
+        cli.build_parser().parse_args(argv))
+    model = DLRMModel(model_cfg)
+    runs = {}
+    init = None
+    for dev in ("cpu", "cuda"):
+        trainer = harness.Trainer(model, train_cfg,
+                                  RandomDataset(model_cfg, train_cfg),
+                                  device=dev)
+        if init is None:  # the CPU's init, copied before a step moves it
+            init = tree_map(torch.clone, trainer.init_state().params)
+        params = tree_map(lambda t: t.clone().to(trainer.device), init)
+        state = harness.TrainState(params, init_opt_state(
+            train_cfg.optimizer, params))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            state = trainer.train(state)
+        runs[dev] = ([float(m[4]) for m in TRAIN_LINE.findall(
+            buf.getvalue())], tree_leaves(state.params))
+    (l_c, p_c), (l_g, p_g) = runs["cpu"], runs["cuda"]
+    check(len(l_c) == 3 and np.allclose(l_g, l_c, rtol=1e-5, atol=0),
+          f"{tag}: losses on the card {l_g} and the CPU {l_c}")
+    errs = [float(((g.cpu() - c).abs() - 1e-4 * c.abs()).max())
+            for g, c in zip(p_g, p_c)]
+    check(max(errs) <= 1e-5, f"{tag}: parameters differ beyond rtol 1e-4 "
+          f"+ atol 1e-5 ({max(errs):.3e})")
+    return l_g, l_c, max(float((g.cpu() - c).abs().max())
+                         for g, c in zip(p_g, p_c))
+
+
+def v1_tricks():
+    """8c: QR (mult, add, concat) and MD tables at the Criteo Kaggle counts
+    and widths, 3 dense steps each on the card with finite losses and no
+    synchronizing call past the first step; then each on tables of at most
+    100,000 rows, the card against the CPU."""
+    tag = "phase 8c"
+    counts = "--arch-embedding-size=" + "-".join(map(str, KAGGLE))
+    capped = "--arch-embedding-size=" + "-".join(
+        str(min(n, 100_000)) for n in KAGGLE)
+    for name, extra in V1_TRICKS.items():
+        t = f"{tag} {name}"
+        probe, out, _, losses = run_cli(t, V1_KAGGLE + [counts, *extra], ())
+        check(len(probe.spans) == 3, f"{t}: {len(probe.spans)} steps")
+        check_no_late_syncs(t, probe)
+        spans = [a.elapsed_time(b) for a, b in probe.spans]
+        log(f"{t}: {sum(KAGGLE)} rows; losses "
+            + " ".join(f"{x:.6f}" for x in losses.tolist())
+            + f"; device span per step {' '.join(f'{x:.2f}' for x in spans)}"
+            f" ms; synchronizing calls past the first step: 0")
+        l_g, l_c, err = cpu_card_agree(t, V1_KAGGLE + [capped, *extra])
+        log(f"{t}: on tables of at most 100,000 rows, 3 steps on the card "
+            f"and on the CPU: losses {' '.join(f'{x:.6f}' for x in l_g)} "
+            f"and {' '.join(f'{x:.6f}' for x in l_c)}, parameters within "
+            f"{err:.3e}")
+
+
+def v1_goldens():
+    """8d: the four golden configs of test_scripts/dlrm_tpu_test.sh through
+    cli.main on the card (TF32 off): every loss line within 5e-6 of the
+    golden log."""
+    counts = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name, argv in GOLDEN.items():
+        tag = f"phase 8d {name}"
+        _, out, launches, _ = run_cli(tag, argv, quiet=True,
+                                      hold=FusedHold(f"{tag} (every step)"))
+        with open(os.path.join(here, "test_scripts", "golden",
+                               f"{name}.log")) as f:
+            want = [float(x) for x in re.findall(r"loss (\d+\.\d+)", f.read())]
+        got = [float(x) for x in re.findall(r"loss (\d+\.\d+)", out)]
+        err = max(abs(a - b) for a, b in zip(got, want))
+        check(len(got) == len(want) and err <= 5e-6,
+              f"phase 8d {name}: losses {got}, golden {want}")
+        log(f"phase 8d {name}: {len(got)} loss lines within {err:.1e} of "
+            "the golden log (limit 5e-6)")
+        counts[tag] = launches
+    return counts
+
+
+def phase_v1_trainer(tmp):
+    """Phase 8: 8a-8d; returns each fused-step run's launches of
+    coalesce_rows and row_scatter_add, by run ("8a", "8b", ...), each read
+    just after its own reset to 0."""
+    t_phase = time.perf_counter()
+    counts = {**v1_bench(), **v1_mlperf(tmp)}
+    v1_tricks()
+    counts.update(v1_goldens())
+    counts = {tag.removeprefix("phase "): {k: c[k] for k in FUSED}
+              for tag, c in counts.items()}
+    log("phase 8: launches of (coalesce_rows, row_scatter_add) by run, once "
+        "per fused step: " + ", ".join(
+            f"{t} ({c['coalesce_rows']}, {c['row_scatter_add']})"
+            for t, c in counts.items())
+        + f"; {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1944,9 +2415,14 @@ def main() -> int:
             data_v2 = write_v2_dataset(tmp)
             phase_v2_trainer(data_v2)
             fused = phase_other_paths(tmp, data_v2)
+            v1 = phase_v1_trainer(tmp)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    for entry in fused:  # launches: phase 7a's; by path: 7a's and phase 8's
+        name = entry["name"].split(" ")[0]
+        entry["launches_by_path"] = {
+            "7a": entry["launches"], **{t: c[name] for t, c in v1.items()}}
     kernels = [new["window_grads"], k2, new["stream_rows"],
                new["window_pool"], *probes, *fused]
     print(json.dumps({"kernels": kernels}))

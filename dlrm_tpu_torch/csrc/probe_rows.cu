@@ -19,7 +19,7 @@
 //
 // Design: one warp per row, grid-stride over the rows; a contiguous row
 // moves as float4 (16 bytes a lane, 512 bytes a warp at d = 128), a strided
-// one element by element. Unique scatter indices mean each table row has
+// row, or one whose width is not a multiple of 4, element by element. Unique scatter indices mean each table row has
 // one writer, so no atomics. An index outside [0, rows) is not read: the
 // gather writes a zero row for it, the scatter skips it.
 //
@@ -64,6 +64,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
     scatter_add_rows(float* __restrict__ table, int64_t rows,
                      const int* __restrict__ idx,
@@ -75,14 +76,18 @@ __global__ void __launch_bounds__(kThreads)
     if (r < 0 || r >= rows) continue;
     float* row = table + r * d;
     const float* dr = delta + k * d;
-    for (int c = lane * 4; c < d; c += 128) {
-      float4 t = *reinterpret_cast<const float4*>(row + c);
-      const float4 v = *reinterpret_cast<const float4*>(dr + c);
-      t.x = __fadd_rn(t.x, v.x);
-      t.y = __fadd_rn(t.y, v.y);
-      t.z = __fadd_rn(t.z, v.z);
-      t.w = __fadd_rn(t.w, v.w);
-      *reinterpret_cast<float4*>(row + c) = t;
+    if (kVec) {
+      for (int c = lane * 4; c < d; c += 128) {
+        float4 t = *reinterpret_cast<const float4*>(row + c);
+        const float4 v = *reinterpret_cast<const float4*>(dr + c);
+        t.x = __fadd_rn(t.x, v.x);
+        t.y = __fadd_rn(t.y, v.y);
+        t.z = __fadd_rn(t.z, v.z);
+        t.w = __fadd_rn(t.w, v.w);
+        *reinterpret_cast<float4*>(row + c) = t;
+      }
+    } else {
+      for (int c = lane; c < d; c += 32) row[c] = __fadd_rn(row[c], dr[c]);
     }
   }
 }
@@ -106,14 +111,20 @@ extern "C" int row_gather(const float* table, int64_t rows, int64_t row_stride,
   return int(cudaGetLastError());
 }
 
-// table [rows, d] and delta [n, d] contiguous, 16-byte aligned, d % 4 == 0
+// table [rows, d] and delta [n, d] contiguous; with d % 4 == 0 both
+// 16-byte aligned (float4 rows), else element by element
 extern "C" int row_scatter_add(float* table, int64_t rows, const int* idx,
                                const float* delta, int64_t n, int d,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n < 0 || d <= 0 || d % 4 != 0) return int(cudaErrorInvalidValue);
+  if (n < 0 || d <= 0) return int(cudaErrorInvalidValue);
   if (n == 0) return int(cudaGetLastError());
-  scatter_add_rows<<<warp_grid(n), kThreads, 0, st>>>(table, rows, idx, delta,
-                                                      n, d);
+  if (d % 4 == 0) {
+    scatter_add_rows<true><<<warp_grid(n), kThreads, 0, st>>>(
+        table, rows, idx, delta, n, d);
+  } else {
+    scatter_add_rows<false><<<warp_grid(n), kThreads, 0, st>>>(
+        table, rows, idx, delta, n, d);
+  }
   return int(cudaGetLastError());
 }

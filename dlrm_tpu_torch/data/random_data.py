@@ -1,6 +1,7 @@
 """Random host batches and their trip to the device (the port of
 dlrm_tpu/data/random_data.py: HostBatch, the reference-RNG generators
-_gen_sparse_group / generate_random_batch / RandomDataset, and
+_gen_sparse_group / generate_random_batch / RandomDataset, with its
+trace-driven synthetic branch (data/synthetic.py), and
 ragged_multihot_batch / fixed_multihot_batch).
 
 RandomDataset replicates the numpy global-RNG call sequence of the reference
@@ -221,11 +222,18 @@ class RandomDataset:
         train_cfg: TrainConfig,
         reset_seed_on_access: bool = True,
         pad_last_batch: bool = False,
+        trace_file: str = "",
+        enable_padding: bool = False,
     ):
+        """trace_file: the per-table dist-file path template ('j' stands
+        for the table index) of data_generation="synthetic";
+        enable_padding: its --data-trace-enable-padding."""
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.reset_seed_on_access = reset_seed_on_access
         self.pad_last_batch = pad_last_batch
+        self.trace_file = trace_file
+        self.enable_padding = enable_padding
         # single source of truth for the batch-count derivation
         nb = train_cfg.num_train_batches
         if train_cfg.num_batches > 0:
@@ -243,9 +251,20 @@ class RandomDataset:
             np.random.seed(tc.numpy_rand_seed)
         n = min(tc.mini_batch_size, self.data_size - index * tc.mini_batch_size)
         if tc.data_generation == "synthetic":
-            raise NotImplementedError(
-                "data_generation='synthetic' (data/synthetic.py) is not "
-                "ported yet (ROADMAP queue A item 10)"
+            from dlrm_tpu_torch.data.synthetic import generate_synthetic_batch
+
+            return generate_synthetic_batch(
+                mc.num_dense,
+                mc.table_sizes,
+                n,
+                mc.num_indices_per_lookup,
+                self.trace_file,
+                tc.num_indices_per_lookup_fixed,
+                self.enable_padding,
+                round_targets=tc.round_targets,
+                pad_batch_to=(
+                    tc.mini_batch_size if self.pad_last_batch else None
+                ),
             )
         return generate_random_batch(
             mc.num_dense,

@@ -1,6 +1,6 @@
 """Sum-pooled multi-hot embedding lookups (the port of dlrm_tpu/ops/
-embedding.py's embedding_bag, fused_embedding_bag, flat_hit_offsets and
-grouped_embedding_bag).
+embedding.py's embedding_bag, fused_embedding_bag, qr_embedding_bag,
+flat_hit_offsets and grouped_embedding_bag).
 
 All equal-width tables live in one stacked [rows, d] array; per-table row
 offsets are added to the table-local indices, and every bag of every table
@@ -114,6 +114,31 @@ def embedding_bag(
         idx, table, mode="sum",
         per_sample_weights=None if wt is None else wt.to(table.dtype),
     )
+
+
+def qr_embedding_bag(
+    q_table: torch.Tensor,  # [ceil(n / c), m]
+    r_table: torch.Tensor,  # [c, m]
+    collisions: int,
+    operation: str,
+    idx: torch.Tensor,  # [B, H] int
+    wt: Optional[torch.Tensor] = None,  # [B, H]
+) -> torch.Tensor:
+    """Quotient-remainder lookup (tricks/qr_embedding_bag.py:192-226):
+    index -> index // c into the quotient table and index % c into the
+    remainder table; each bag is pooled in both tables first and the two
+    pooled vectors are then combined by mult, add or concat (for mult that
+    is not the sum of per-index products), as the reference does."""
+    vq = embedding_bag(q_table, torch.div(idx, collisions,
+                                          rounding_mode="floor"), wt)
+    vr = embedding_bag(r_table, torch.remainder(idx, collisions), wt)
+    if operation == "mult":
+        return vq * vr
+    if operation == "add":
+        return vq + vr
+    if operation == "concat":
+        return torch.cat([vq, vr], dim=1)
+    raise ValueError(f"qr operation {operation!r} not supported")
 
 
 def fused_embedding_bag(

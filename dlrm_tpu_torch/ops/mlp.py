@@ -10,7 +10,24 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
+
+
+def init_mlp_numpy(ln: Sequence[int], device) -> List[dict]:
+    """The reference's init from the GLOBAL numpy stream, in create_mlp's
+    order (dlrm_s_pytorch.py:221-225): per layer W ~ N(0, sqrt(2/(m+n)))
+    of shape (m, n), then b ~ N(0, sqrt(1/m)); W is stored transposed."""
+    layers = []
+    for i in range(len(ln) - 1):
+        n, m = int(ln[i]), int(ln[i + 1])
+        w = np.random.normal(0.0, np.sqrt(2.0 / (m + n)), size=(m, n)).astype(
+            np.float32
+        )
+        b = np.random.normal(0.0, np.sqrt(1.0 / m), size=m).astype(np.float32)
+        layers.append({"w": torch.from_numpy(np.ascontiguousarray(w.T)).to(device),
+                       "b": torch.from_numpy(b).to(device)})
+    return layers
 
 
 def init_mlp(gen: torch.Generator, ln: Sequence[int],

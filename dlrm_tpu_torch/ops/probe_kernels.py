@@ -147,8 +147,12 @@ def row_scatter_add_(
         raise ValueError("row_scatter_add_: indices are not unique")
     if dev.type == "cpu":
         return row_scatter_add_plain(table, idx, delta)
-    _check_rows4("table", table)
-    _check_rows4("delta", delta)
+    if d % 4 == 0:  # float4 rows; any other width element by element
+        _check_rows4("table", table)
+        _check_rows4("delta", delta)
+    elif not (table.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("row_scatter_add_: table and delta must be "
+                         "contiguous")
     _launch("row_scatter_add", dev, table.data_ptr(), table.shape[0],
             idx.data_ptr(), delta.data_ptr(), n, d)
     return table

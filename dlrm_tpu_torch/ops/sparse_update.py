@@ -46,6 +46,7 @@ import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from dlrm_tpu_torch.ops.embedding import flat_layout, flat_rows, to_flat
 from dlrm_tpu_torch.ops.probe_kernels import row_scatter_add_
@@ -147,6 +148,14 @@ def coalesce_rows(
     dev = _device("coalesce_rows", r_s, seg, bag_s, w_s, dly)
     if dev.type == "cpu":
         return coalesce_rows_plain(r_s, seg, bag_s, w_s, dly, total_rows)
+    if d % 4:
+        # the kernel moves rows as float4: a row of any other width runs
+        # zero-padded to the next multiple of 4 (every column is summed on
+        # its own, so the first d columns keep their bits)
+        G, urows = coalesce_rows(
+            r_s, seg, bag_s, w_s,
+            F.pad(dly, (0, -d % 4)).contiguous(), total_rows)
+        return G[:, :d].contiguous(), urows
     _check_rows4("dly", dly)
     if d > MAX_ROW_WIDTH:
         raise ValueError(f"coalesce_rows holds a row in registers: d = {d} "

@@ -67,13 +67,17 @@ from dlrm_tpu_torch.optim.optimizers import (
 )
 
 
+def _check_plain(model: DLRMModel) -> None:
+    if not model.fused:
+        raise ValueError("stream step requires plain uniform-width tables")
+
+
 def plan_for_model(model: DLRMModel, batch_size: int,
                    block_rows: int = 2048, hot_sizes=None) -> StreamPlan:
     """hot_sizes: per-table multi-hot sizes (the v2 ragged config); None
     uses the uniform cfg.num_indices_per_lookup."""
     cfg = model.cfg
-    if not model.fused:
-        raise ValueError("stream step requires plain uniform-width tables")
+    _check_plain(model)
     return make_stream_plan(
         cfg.table_sizes, cfg.embedding_dim, batch_size,
         cfg.num_indices_per_lookup if hot_sizes is None else hot_sizes,
@@ -189,7 +193,7 @@ def make_stream_train_step(
             f"grad_impl must be onehot|gather, got {grad_impl!r}")
     if optimizer not in ("sgd", "rwsadagrad", "adagrad"):
         raise ValueError(f"optimizer {optimizer!r} not supported")
-    model._check_supported()
+    _check_plain(model)
     cfg = model.cfg
     weighted = cfg.weighted_pooling  # None | "fixed" | "learned"
     if weighted is not None and fwd_impl != "gather":
@@ -299,7 +303,7 @@ def make_stream_eval_step(model: DLRMModel, plan: StreamPlan,
     gather + pool as training (v_w folded into the hits' weights), no
     stream work needed on eval batches. eval_step(params, batch) ->
     probs [B, 1]."""
-    model._check_supported()
+    _check_plain(model)
     offsets = _offsets(plan, resolve_device(device))
 
     @torch.no_grad()

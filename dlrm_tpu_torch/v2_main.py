@@ -10,7 +10,8 @@ projection interactions and weighted pooling; the random-data, Multihot
 and materialized multi-hot loaders, the overlapped host pipeline
 (train/pipeline.py::DevicePrefetcher, a host thread and a CUDA side
 stream), the LR policy, and per-epoch train/val/test with the exact AUROC.
-Multi-process and multi-device runs and the binary Criteo loader raise
+the binary Criteo loader (--in_memory_binary_criteo_path, the packed bins
+of data/criteo.py). Multi-process and multi-device runs raise
 NotImplementedError naming their ROADMAP queue A item; none falls back.
 
 Usage:
@@ -249,11 +250,6 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> int:
             "ERROR: --undersampling_rate is not implemented (the reference "
             "never consumes it; use preprocessing-time subsampling)"
         )
-    if args.in_memory_binary_criteo_path:
-        raise NotImplementedError(
-            "--in_memory_binary_criteo_path (data/criteo.py's binary "
-            "loader) is not ported yet (ROADMAP queue A item 10)"
-        )
     torch.backends.cuda.matmul.allow_tf32 = args.allow_tf32
     torch.backends.cudnn.allow_tf32 = args.allow_tf32
     if args.pin_memory:
@@ -266,7 +262,8 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> int:
         table_sizes = tuple(
             int(x) for x in args.num_embeddings_per_feature.split(",")
         )
-    elif args.synthetic_multi_hot_criteo_path:
+    elif (args.in_memory_binary_criteo_path
+          or args.synthetic_multi_hot_criteo_path):
         # dataset runs default to the dataset's published counts
         # (dlrm_dataloader.py:84-92 semantics)
         table_sizes = tuple(
@@ -371,22 +368,27 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> int:
             # batches in the same order are read lazily here, because at
             # full width each padded batch holds ~340 MB of host arrays
             return ds if limit is None else _Limited(ds, limit)
-        tc = TrainConfig(
-            mini_batch_size=args.batch_size,
-            num_batches=limit if limit is not None else 10,
-            numpy_rand_seed=args.seed + {"train": 0, "val": 1, "test": 2}[stage],
-            num_indices_per_lookup_fixed=True,
-            round_targets=True,
-        )
-        # with --multi_hot_sizes the base loader generates ONE-hot batches
-        # which the Multihot synthesizer expands below (the reference wraps
-        # whatever loader is active, dlrm_main.py:697-710)
-        base_cfg = (
-            model_cfg.replace(num_indices_per_lookup=1)
-            if hot_sizes
-            else model_cfg
-        )
-        loader = RandomDataset(base_cfg, tc, pad_last_batch=True)
+        if args.in_memory_binary_criteo_path:
+            loader = _binary_loader(args, stage, table_sizes)
+        else:
+            tc = TrainConfig(
+                mini_batch_size=args.batch_size,
+                num_batches=limit if limit is not None else 10,
+                numpy_rand_seed=args.seed + {"train": 0, "val": 1,
+                                             "test": 2}[stage],
+                num_indices_per_lookup_fixed=True,
+                round_targets=True,
+            )
+            # with --multi_hot_sizes the base loader generates ONE-hot
+            # batches which the Multihot synthesizer expands below (the
+            # reference wraps whatever loader is active,
+            # dlrm_main.py:697-710)
+            base_cfg = (
+                model_cfg.replace(num_indices_per_lookup=1)
+                if hot_sizes
+                else model_cfg
+            )
+            loader = RandomDataset(base_cfg, tc, pad_last_batch=True)
         if hot_sizes:
             mh = Multihot(
                 hot_sizes, table_sizes, args.batch_size,
@@ -506,6 +508,39 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> int:
             break
     evaluate(test_loader, "test")
     return 0
+
+
+def _binary_loader(args, stage: str, table_sizes):
+    """The packed Criteo bins ({train,val,test}_data.bin and
+    day_fea_count.npz, data/criteo.py's format) at --batch_size, as the
+    JAX trainer reads them: --shuffle_batches permutes the train batches'
+    order, --shuffle_training_set the train samples across the whole set
+    (multi_hot_criteo.py:36-37 semantics). The dataset's counts must fit
+    the model's tables, or its indices would wrap silently."""
+    from dlrm_tpu_torch.data.criteo import CriteoBinFile
+
+    path = args.in_memory_binary_criteo_path
+    ds = CriteoBinFile(
+        f"{path}/{stage}_data.bin",
+        f"{path}/day_fea_count.npz",
+        args.batch_size,
+        drop_last=args.drop_last_training_batch if stage == "train" else False,
+        shuffle_batches=args.shuffle_batches and stage == "train",
+        shuffle_samples=args.shuffle_training_set and stage == "train",
+        seed=args.seed,
+    )
+    over = [
+        (i, int(c), int(t))
+        for i, (c, t) in enumerate(zip(ds.counts, table_sizes))
+        if int(c) > int(t)
+    ]
+    if over:
+        raise SystemExit(
+            f"ERROR: dataset counts exceed the model's table sizes for "
+            f"columns {over[:4]}...; pass --num_embeddings_per_feature "
+            "matching day_fea_count.npz"
+        )
+    return ds
 
 
 class _Limited:

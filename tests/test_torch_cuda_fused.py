@@ -1,5 +1,7 @@
-"""The fused step's kernels on the card: coalesce_rows against its plain
-version (ops/sparse_update.py), and the fused step's determinism. Needs a
+"""The fused step's kernels on the card: coalesce_rows and row_scatter_add
+against their plain versions (ops/sparse_update.py,
+ops/probe_kernels.py) at any row width, the fused step's determinism and
+the v1 trainer's fused step against the CPU. Needs a
 CUDA card (marked `cuda`, skipped with a reason elsewhere) and imports
 nothing of JAX, so on a machine without JAX it runs as
 `python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_fused.py`.
@@ -47,10 +49,12 @@ def _hits(dev, n, rows, d, skew, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [128, 64, 256, 8])
+@pytest.mark.parametrize("d", [128, 64, 256, 8, 2, 3, 6])
 @pytest.mark.parametrize("weighted", [True, False])
 @pytest.mark.parametrize("skew", [0.0, 0.3])
 def test_coalesce_rows_matches_plain(dev, d, weighted, skew):
+    """Rows of any width: d not a multiple of 4 runs zero-padded (the v1
+    trainer's default tables are 2 wide)."""
     rows, bag, w, dly = _hits(dev, 40_000, 9_000, d, skew, seed=d)
     r_s, order = torch.sort(rows, stable=True)
     head = torch.ones_like(r_s)
@@ -148,3 +152,59 @@ def test_fused_step_same_bits_on_every_run(dev, optimizer):
     for a, c in zip(*flat):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 6, 128])
+def test_row_scatter_add_any_width_matches_plain(dev, d):
+    """A width that is not a multiple of 4 goes element by element; rows
+    outside the table are skipped."""
+    rng = np.random.default_rng(d)
+    rows = 5000
+    idx = rng.permutation(rows + 300)[:3000].astype(np.int32)
+    table = torch.randn((rows, d), device=dev)
+    delta = torch.randn((idx.size, d), device=dev)
+    idx = torch.from_numpy(idx).to(dev)
+    got = table.clone()
+    n0 = tk.LAUNCHES["row_scatter_add"]
+    from dlrm_tpu_torch.ops import probe_kernels as pk
+
+    pk.row_scatter_add_(got, idx, delta)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["row_scatter_add"] == n0 + 1
+    assert torch.equal(got, pk.row_scatter_add_plain(table, idx, delta))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rwsadagrad"])
+def test_v1_fused_step_matches_cpu(dev, optimizer):
+    """The v1 trainer's fused step on padded [T, B, H] batches with weight-0
+    slots and 2-wide tables (the reference's default): both kernels once a
+    step, and the card's parameters within rtol 1e-4 / atol 1e-5 of the
+    CPU's after 3 steps (TF32 off)."""
+    from dlrm_tpu_torch.config import TrainConfig
+    from dlrm_tpu_torch.data.random_data import RandomDataset
+    from dlrm_tpu_torch.optim.optimizers import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DLRMConfig(embedding_dim=2, table_sizes=(40, 9, 300),
+                     mlp_bot=(4, 3, 2), mlp_top=(4, 2, 1),
+                     num_indices_per_lookup=10)
+    model = DLRMModel(cfg)
+    tc = TrainConfig(mini_batch_size=16, num_batches=3)
+    batches = list(RandomDataset(cfg, tc))
+    init = model.init_params(seed=0, device="cpu")
+    out = []
+    for d in ("cpu", dev):
+        p = tree_map(lambda t: t.clone().to(d), init)
+        s = init_opt_state(optimizer, p)
+        step = make_fused_train_step(model, optimizer)
+        n0 = tk.LAUNCHES["coalesce_rows"]
+        for hb in batches:
+            step(p, s, hb.to_device(d), 0.1)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            assert tk.LAUNCHES["coalesce_rows"] == n0 + 3
+        out.append(tree_leaves(p))
+    for c, g in zip(*out):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5)

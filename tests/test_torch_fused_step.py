@@ -196,8 +196,8 @@ def _stacked(hbs):
 
 
 def test_grad_accum_steps_per_group():
-    """The grad-accum step (the v1 trainer's --mlperf-grad-accum-iter, whose
-    CLI wiring is ROADMAP A10): six micro-batches in two groups of three
+    """The grad-accum step (the v1 trainer's --mlperf-grad-accum-iter, wired
+    in train/harness.py): six micro-batches in two groups of three
     take two optimizer steps, each loss the mean of its group's, and the
     dense grad-accum step equals JAX's."""
     rng = np.random.default_rng(0)

@@ -513,3 +513,185 @@ def test_init_params_interaction_and_pooling_weights():
         jax.random.PRNGKey(0))
     assert (jax.tree_util.tree_structure(_np(jp))
             == jax.tree_util.tree_structure(p))
+
+
+# ------------------------------------------------ QR and MD tables (the v1 CLI)
+
+
+@pytest.mark.parametrize("op", ["mult", "add", "concat"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_qr_embedding_bag_values_and_grads(op, weighted):
+    """Each bag pooled in the quotient and the remainder table, then the
+    two pooled vectors combined: values and both tables' grads."""
+    rng = np.random.default_rng(10)
+    c, m = 3, (2 if op == "concat" else 4)
+    q = rng.normal(size=(14, m)).astype(np.float32)
+    r = rng.normal(size=(c, m)).astype(np.float32)
+    idx = rng.integers(0, 40, (9, 5)).astype(np.int32)
+    wt = rng.uniform(0.5, 1.5, idx.shape).astype(np.float32) if weighted \
+        else None
+    cot = rng.normal(size=(9, 4)).astype(np.float32)
+
+    def jf(qq, rr):
+        return jnp.sum(jemb.qr_embedding_bag(qq, rr, c, op, idx, wt) * cot)
+
+    jout = jemb.qr_embedding_bag(q, r, c, op, idx, wt)
+    jgq, jgr = jax.grad(jf, argnums=(0, 1))(q, r)
+    tq, tr = _t(q, grad=True), _t(r, grad=True)
+    tout = temb.qr_embedding_bag(tq, tr, c, op, _t(idx).long(),
+                                 None if wt is None else _t(wt))
+    _close(tout, jout, VAL)
+    (tout * _t(cot)).sum().backward()
+    _close(tq.grad, jgq, GRAD)
+    _close(tr.grad, jgr, GRAD)
+    with pytest.raises(ValueError, match="not supported"):
+        temb.qr_embedding_bag(tq, tr, c, "max", _t(idx).long())
+
+
+def _trick_configs(trick, weighted):
+    from dlrm_tpu.config import MDConfig as JaxMD
+    from dlrm_tpu.config import QRConfig as JaxQR
+    from dlrm_tpu_torch.config import MDConfig, QRConfig
+
+    kw = dict(embedding_dim=4, table_sizes=(40, 9, 300, 70),
+              mlp_bot=(5, 8, 4), mlp_top=(8, 1), loss="bce",
+              num_indices_per_lookup=6, weighted_pooling=weighted)
+    if trick == "md":
+        return (JaxConfig(**kw, md=JaxMD(threshold=20)),
+                DLRMConfig(**kw, md=MDConfig(threshold=20)))
+    op = trick.split("-")[1]
+    return (JaxConfig(**kw, qr=JaxQR(collisions=3, threshold=20, operation=op)),
+            DLRMConfig(**kw, qr=QRConfig(collisions=3, threshold=20,
+                                         operation=op)))
+
+
+@pytest.mark.parametrize("trick", ["qr-mult", "qr-add", "qr-concat", "md"])
+@pytest.mark.parametrize("weighted", [None, "learned"])
+def test_qr_md_forward_and_dense_step_grads(trick, weighted):
+    """QR and MD models (per-table entries: q/r, w + proj for the narrower
+    MD tables, w for the small ones): the loss, the probabilities and the
+    grads of every leaf against dlrm_tpu's on a padded batch with weight-0
+    slots; then one dense step (rwsadagrad: row-wise for w, q and r,
+    element-wise for proj) to the same params."""
+    from dlrm_tpu.data.batch import Batch as JBatch
+    from dlrm_tpu.optim.optimizers import apply_updates as japply
+    from dlrm_tpu.optim.optimizers import init_opt_state as jinit
+    from dlrm_tpu_torch.data.batch import Batch as TBatch
+    from dlrm_tpu_torch.optim.optimizers import init_opt_state
+    from dlrm_tpu_torch.train.step import make_train_step
+
+    jcfg, tcfg = _trick_configs(trick, weighted)
+    jmodel, tmodel = jdlrm.DLRMModel(jcfg), tdlrm.DLRMModel(tcfg)
+    assert tmodel.table_dims == jmodel.table_dims
+    params = _np(jmodel.init_params(jax.random.PRNGKey(3)))
+    if trick == "md":
+        assert "proj" in params["emb"]["tables"][2]
+    rng = np.random.default_rng(4)
+    b = 10
+    idx = np.stack([rng.integers(0, n, (b, 6)) for n in jcfg.table_sizes]
+                   ).astype(np.int32)
+    wt = (rng.random(idx.shape) < 0.8).astype(np.float32)
+    idx[wt == 0] = 0
+    dense = rng.normal(size=(b, 5)).astype(np.float32)
+    labels = rng.integers(0, 2, (b, 1)).astype(np.float32)
+    jb = JBatch(dense=dense, idx=idx, wt=wt, labels=labels)
+    (jl, jp), jg = jax.value_and_grad(
+        lambda p: jmodel.loss_and_prob(p, jb), has_aux=True)(params)
+    tp = params_from_jax(params, device="cpu")
+    for v in jax.tree_util.tree_leaves(tp):
+        v.requires_grad_()
+    tb = TBatch(_t(dense), _t(idx), _t(wt), _t(labels))
+    tl, tprob = tmodel.loss_and_prob(tp, tb)
+    _close(tl, jl, VAL)
+    _close(tprob, jp, VAL)
+    tl.backward()
+    for g, t in zip(jax.tree_util.tree_leaves(jg),
+                    jax.tree_util.tree_leaves(tp)):
+        _close(t.grad, g, GRAD)
+    # one dense step
+    jo = jinit("rwsadagrad", params)
+    jp2, _ = japply("rwsadagrad", params, jg, jo, 0.1)
+    tp = params_from_jax(params, device="cpu")
+    to = init_opt_state("rwsadagrad", tp)
+    assert [tuple(a.shape) for a in jax.tree_util.tree_leaves(to["accum"])] \
+        == [a.shape for a in jax.tree_util.tree_leaves(jo["accum"])]
+    make_train_step(tmodel, "rwsadagrad")(tp, to, tb, 0.1)
+    for a, t in zip(jax.tree_util.tree_leaves(jp2),
+                    jax.tree_util.tree_leaves(tp)):
+        _close(t, a, GRAD)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(),
+    dict(weighted_pooling="fixed"),
+    dict(md_threshold=20),
+    dict(md_threshold=20, weighted_pooling="learned", md_round=True),
+], ids=["plain", "weighted", "md", "md-round-weighted"])
+def test_init_params_numpy_equals_jax(cfg):
+    """The reference's numpy-stream init (tables, then the bottom MLP,
+    then the top MLP; MD projections from a private stream): the JAX
+    package's numbers bit for bit, and the global stream left where JAX
+    leaves it."""
+    from dlrm_tpu.config import MDConfig as JaxMD
+    from dlrm_tpu_torch.config import MDConfig
+
+    kw = dict(embedding_dim=4, table_sizes=(40, 9, 300), mlp_bot=(5, 8, 4),
+              mlp_top=(8, 1), weighted_pooling=cfg.get("weighted_pooling"))
+    j_kw, t_kw = dict(kw), dict(kw)
+    if "md_threshold" in cfg:
+        j_kw["md"] = JaxMD(threshold=20, round_dims=cfg.get("md_round", False))
+        t_kw["md"] = MDConfig(threshold=20,
+                              round_dims=cfg.get("md_round", False))
+    np.random.seed(5)
+    jp = _np(jdlrm.DLRMModel(JaxConfig(**j_kw)).init_params_numpy())
+    j_next = np.random.rand()
+    np.random.seed(5)
+    tp = tdlrm.DLRMModel(DLRMConfig(**t_kw)).init_params_numpy(device="cpu")
+    assert np.random.rand() == j_next
+    assert (jax.tree_util.tree_structure(jp)
+            == jax.tree_util.tree_structure(tp))
+    for a, t in zip(jax.tree_util.tree_leaves(jp),
+                    jax.tree_util.tree_leaves(tp)):
+        assert t.dtype == torch.float32
+        np.testing.assert_array_equal(t.numpy(), a)
+
+
+def test_init_params_numpy_interaction_and_qr():
+    """The dcn weights are seeded from the global stream without drawing
+    from it (JAX draws them with jax.random: the same shapes, other
+    numbers); QR tables have no numpy init and raise, as in JAX."""
+    from dlrm_tpu_torch.config import QRConfig
+
+    kw = dict(embedding_dim=4, table_sizes=(40, 9), mlp_bot=(5, 4),
+              mlp_top=(8, 1), interaction="dcn")
+    np.random.seed(2)
+    jp = _np(jdlrm.DLRMModel(JaxConfig(**kw)).init_params_numpy())
+    np.random.seed(2)
+    tp = tdlrm.DLRMModel(DLRMConfig(**kw)).init_params_numpy(device="cpu")
+    assert [a.shape for a in jax.tree_util.tree_leaves(jp["dcn"])] == [
+        tuple(t.shape) for t in jax.tree_util.tree_leaves(tp["dcn"])]
+    np.testing.assert_array_equal(tp["bot"][0]["w"].numpy(),
+                                  jp["bot"][0]["w"])
+    m = tdlrm.DLRMModel(DLRMConfig(**{**kw, "interaction": "dot"},
+                                   qr=QRConfig(threshold=10)))
+    with pytest.raises(NotImplementedError, match="QR"):
+        m.init_params_numpy(device="cpu")
+
+
+@pytest.mark.parametrize("trick", ["qr-mult", "qr-concat", "md"])
+def test_init_params_qr_md_tree_and_bounds(trick):
+    """init_params (a torch.Generator) draws the JAX package's tree: the
+    same shapes for q, r, w and proj; tables within U(-sqrt(1/n),
+    sqrt(1/n)) of their table's n."""
+    jcfg, tcfg = _trick_configs(trick, "fixed")
+    jp = _np(jdlrm.DLRMModel(jcfg).init_params(jax.random.PRNGKey(0)))
+    tp = tdlrm.DLRMModel(tcfg).init_params(seed=0, device="cpu")
+    assert (jax.tree_util.tree_structure(jp)
+            == jax.tree_util.tree_structure(tp))
+    for a, t in zip(jax.tree_util.tree_leaves(jp),
+                    jax.tree_util.tree_leaves(tp)):
+        assert tuple(t.shape) == a.shape
+    for n, entry in zip(tcfg.table_sizes, tp["emb"]["tables"]):
+        for k in ("q", "r", "w"):
+            if k in entry:
+                assert float(entry[k].abs().max()) <= (1.0 / n) ** 0.5

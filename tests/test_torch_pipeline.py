@@ -5,8 +5,6 @@ producer errors surfaced, the LR policy stepped), and the CPU prefetcher's
 batches equal to a plain loop's, bit for bit. The CUDA side stream is
 tested on the card (tests/test_torch_cuda_pipeline.py)."""
 
-import copy
-import itertools
 import threading
 import time
 
@@ -18,6 +16,7 @@ from dlrm_tpu.train.pipeline import DevicePrefetcher as JaxDevicePrefetcher
 from dlrm_tpu_torch.data.random_data import ragged_multihot_batch
 from dlrm_tpu_torch.ops.stream_plan import make_stream_plan
 from dlrm_tpu_torch.optim.lr_policy import LRPolicy
+from dlrm_tpu_torch.train.harness import _skip_batches
 from dlrm_tpu_torch.train.pipeline import (
     DevicePrefetcher,
     HostPrefetcher,
@@ -48,24 +47,10 @@ def test_prefetcher_early_exit_no_deadlock():
     assert len(produced) < 100  # it stopped early instead of draining
 
 
-def _skip_batches(src, skip: int):
-    """dlrm_tpu/train/harness.py::_skip_batches over the port's prefetcher
-    (the port's harness is ROADMAP queue A item 10): a prefetcher is
-    unwrapped so that an index-enumerating loader skips at the index level,
-    then re-applied around the skipped iterable."""
-    if isinstance(src, DevicePrefetcher):
-        clone = copy.copy(src)
-        clone.loader = _skip_batches(src.loader, skip)
-        return clone
-    if hasattr(src, "batch_indices") and hasattr(src, "read_batch"):
-        ids = list(src.batch_indices())[skip:]
-        return (src.read_batch(i) for i in ids)
-    return itertools.islice(iter(src), skip, None)
-
-
 def test_prefetcher_resume_skip_reaches_wrapped_loader():
-    """set_epoch is forwarded to the wrapped loader, and a resume skip
-    reaches it through the wrapper: the skipped batches are never read."""
+    """set_epoch is forwarded to the wrapped loader, and a resume skip (the
+    port's harness._skip_batches) reaches it through the wrapper: the
+    skipped batches are never read."""
     class FakeBinLoader:
         def __init__(self):
             self.epoch = None

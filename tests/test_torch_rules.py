@@ -43,6 +43,11 @@ def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_SOURCES}
     assert "dlrm_tpu_torch/train/stream_step.py" in names
     assert "dlrm_tpu_torch/ops/stream_kernels.py" in names
+    for module in ("cli", "train/harness", "train/checkpoint", "data/criteo",
+                   "data/criteo_stream", "data/synthetic", "utils/logging",
+                   "utils/tfevents", "utils/profiling",
+                   "native/criteo_native"):
+        assert f"dlrm_tpu_torch/{module}.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -67,7 +72,8 @@ def test_default_device_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     from dlrm_tpu_torch.bridge import params_from_jax
-    from dlrm_tpu_torch.config import DLRMConfig
+    from dlrm_tpu_torch.cli import main as v1_main
+    from dlrm_tpu_torch.config import DLRMConfig, TrainConfig
     from dlrm_tpu_torch.data.random_data import fixed_multihot_batch
     from dlrm_tpu_torch.device import resolve_device
     from dlrm_tpu_torch.models.dlrm import DLRMModel
@@ -79,6 +85,7 @@ def test_default_device_entry_points_raise_without_cuda():
         scan_probe,
         stream_variants,
     )
+    from dlrm_tpu_torch.train.harness import Trainer
     from dlrm_tpu_torch.train.pipeline import DevicePrefetcher
     from dlrm_tpu_torch.train.stream_step import (
         make_stream_eval_step,
@@ -96,6 +103,7 @@ def test_default_device_entry_points_raise_without_cuda():
     calls = [
         lambda: resolve_device(),
         lambda: model.init_params(seed=0),
+        lambda: model.init_params_numpy(),
         lambda: params_from_jax({"w": np.zeros((2, 2), np.float32)}),
         lambda: hb.to_device(),
         lambda: make_stream_train_step(model, "sgd", plan),
@@ -106,6 +114,9 @@ def test_default_device_entry_points_raise_without_cuda():
                          "--num_embeddings", "16",
                          "--dense_arch_layer_sizes", "8",
                          "--over_arch_layer_sizes", "4,1"]),
+        # the v1 trainer, before it draws a batch, and its Trainer
+        lambda: v1_main(["--mini-batch-size=2", "--data-size=2"]),
+        lambda: Trainer(model, TrainConfig(), []),
         # the probes time the card
         scan_probe.main, pallas_probe.main, stream_variants.main,
         revolve_probe.main, k2_bisect.main, kernel_feasibility.main,

@@ -396,11 +396,12 @@ def test_stream_step_rejects_unported_paths():
     tstep.make_stream_train_step(model, "sgd", pair.tplan, device="cpu")
     model = DLRMModel(DLRMConfig(**dict(KW, interaction="cat")))
     tstep.make_stream_train_step(model, "sgd", pair.tplan, device="cpu")
-    # QR/MD tables are the one model left (ROADMAP A10)
+    # QR/MD tables have no stream layout (they take the dense step), as in
+    # JAX
     from dlrm_tpu_torch.config import QRConfig
 
     model = DLRMModel(DLRMConfig(**dict(KW, qr=QRConfig())))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="plain uniform-width tables"):
         tstep.make_stream_train_step(model, "sgd", pair.tplan, device="cpu")
 
 

@@ -127,12 +127,28 @@ def test_random_dataset_batches_equal(fixed, dist, pad):
         _assert_batches_equal(a, b)
 
 
-def test_random_dataset_synthetic_is_not_ported():
-    ds = RandomDataset(DLRMConfig(**MODEL),
-                       TrainConfig(mini_batch_size=4, num_batches=1,
-                                   data_generation="synthetic"))
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        ds[0]
+def test_random_dataset_synthetic_matches_jax(tmp_path_factory):
+    """The synthetic branch, which used to raise here, is ported
+    (data/synthetic.py): the same dist files and seed give JAX's batches
+    bit for bit, the padded last batch included."""
+    from dlrm_tpu.data import synthetic as jsyn
+
+    tmp_path = tmp_path_factory.mktemp("dist")  # no "j" but the template's
+
+    for k, n in enumerate(MODEL["table_sizes"]):
+        jsyn.synthesize_dist_fixture(str(tmp_path / f"dist_{k}.log"), n,
+                                     seed=k)
+    template = str(tmp_path / "dist_j.log")
+    tc = dict(mini_batch_size=4, data_size=10, data_generation="synthetic")
+    tds = RandomDataset(DLRMConfig(**MODEL), TrainConfig(**tc),
+                        pad_last_batch=True, trace_file=template)
+    jds = JaxRandomDataset(JaxDLRMConfig(**MODEL), JaxTrainConfig(**tc),
+                           pad_last_batch=True, trace_file=template)
+    tb, jb = list(tds), list(jds)
+    assert len(tb) == len(jb) == 3
+    for a, b in zip(tb, jb):
+        _assert_batches_equal(a, b)
+    assert (tb[-1].labels[2:] == -1).all()
 
 
 # ------------------------------------------------------------------ Multihot

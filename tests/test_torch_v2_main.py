@@ -320,12 +320,44 @@ BASE = ["--limit_train_batches", "1", "--batch_size", "16", *SMALL,
         "--num_embeddings", "64"]
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--in_memory_binary_criteo_path", "/nonexistent"], "item 10"),
+@pytest.mark.parametrize("extra,error", [
+    (["--in_memory_binary_criteo_path", "/nonexistent"], FileNotFoundError),
 ], ids=["binary-criteo"])
-def test_unported_branches_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=f"queue A {item}"):
+def test_unported_branches_raise(extra, error):
+    """The binary Criteo loader, which raised NotImplementedError here until
+    it was ported, now opens its bins: a missing directory is a missing
+    file, as in JAX."""
+    with pytest.raises(error):
+        _run(BASE + extra, jmain.main)
+    with pytest.raises(error):
         _run(BASE + extra)
+
+
+def test_parity_binary_criteo_loader(jax_init, tmp_path):
+    """--in_memory_binary_criteo_path on the bins of the port's
+    data/criteo.py, against the JAX trainer on the same bins: the fused
+    path and the stream path with --shuffle_batches, Multihot expanding
+    the one-hot rows."""
+    from dlrm_tpu_torch.data import criteo as tcriteo
+
+    raws = _raw_days(tmp_path, days=3, rows=200)
+    out = str(tmp_path / "bins")
+    art = tcriteo.preprocess_raw(raws, out, randomize="none")
+    tcriteo.numpy_to_binary(art.day_files[:-1], f"{out}/train_data.bin")
+    for split in ("val", "test"):
+        tcriteo.numpy_to_binary(art.day_files[-1:],
+                                f"{out}/{split}_data.bin", split)
+    counts = ",".join(str(int(c)) for c in art.counts)
+    argv = ["--in_memory_binary_criteo_path", out, "--batch_size", "64",
+            *SMALL, "--num_embeddings_per_feature", counts,
+            "--learning_rate", "0.05"]
+    for extra in (["--embedding_impl", "fused"],
+                  ["--embedding_impl", "stream", "--shuffle_batches",
+                   "--multi_hot_sizes", ",".join(["2"] * 26)]):
+        j, t = _both(argv + extra)
+        # 400 train rows in 7 batches of 64, the last padded
+        assert t["counts"][0].startswith("Epoch 0: 448 samples")
+        _assert_parity(j, t)
 
 
 PARITY = ["--limit_train_batches", "4", "--limit_val_batches", "2",
