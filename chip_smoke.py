@@ -36,7 +36,8 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      weight-0 hits are dropped from U, leaving bags with no slot, bags
      hitting one row twice), each K4 case called twice with the same bits;
      K3 also on a plan whose first block's 128-slot run makes its 256-slot
-     item overrun into the next block's run.
+     item overrun into the next block's run. Then the host's us to enqueue
+     a call of K1-K4 and of the parts of a launch (host_us).
   3. the gather path at full width: 26 tables x 200,000 rows, d = 128, the
      ragged v2 hot sizes (214 hits/sample), batch 16,384, MLPs 13-512-256-128
      and 479-1024-1024-512-256-1, dot interaction, BCE, bf16 compute, bf16
@@ -60,16 +61,25 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
   5. the probes (dlrm_tpu_torch/probes/, the port of bench_scripts/'s
      Pallas probes P1-P6): each probe kernel against its plain version at a
      small size and at its probe's own size (row_gather, row_scatter_add,
-     block_stream, t3_reshape_add and the k2_bisect skeletons bit-identical;
-     k2_bisect V1/V2/V5/V6 within rtol 1e-5 / atol 1e-6 of the plain sgd
-     update and bit-identical to K2; t2_contract and t4_onehot_accumulate
-     rtol 1e-5 / atol 1e-4; t6_revolve_accumulate atol 1e-5); then every
+     block_stream, t3_reshape_add, t6_revolve_accumulate and the k2_bisect
+     skeletons bit-identical; k2_bisect V1/V2/V5/V6 within rtol 1e-5 /
+     atol 1e-6 of the plain sgd update and bit-identical to K2;
+     t2_contract and t4_onehot_accumulate rtol 1e-5 / atol 1e-4); T2-T6
+     and P2b's takes timed three ways beside their library calls (CUDA
+     events around 20 calls; the card's us a call from 100 calls in one
+     CUDA graph; the host's us to enqueue a call behind a sleeping card);
+     T3 and T6 also at a size past the L2 (T3_SCALE, T6_SCALE), bit for
+     bit against their plain versions, their library calls within the
+     reference's tolerance, with their share of the bytes bound; then every
      launch count set to 0, the six probes' main() at their own sizes (K2's
      bisection also at the main-path shape, with one index_add_ as V1's
      library call and K2 itself on a ladder of configurations from V1's sgd
      on fp32 to the train step's rwsadagrad on bf16), the counts read, and
      the card's copy, revolve, gather and scatter figures and each probe
      kernel's time, plain time, bound and library yardstick.
+     `python3 chip_smoke.py --device-times` builds and runs only phase 5's
+     timings of T2-T6 and P2b and phase 2b's host us of K1-K4's launch
+     path, with their checks; it prints no "ok" line.
   6. the trainer, dlrm_tpu_torch/v2_main.py: (a) processed Criteo days drawn
      from a numpy seed for bench.py's tables (3 days, 262,144 rows), made
      multi-hot with V2_HOT_SIZES by materialize_multihot_dataset (224 MB of
@@ -272,6 +282,9 @@ from dlrm_tpu_torch.ops import probe_kernels as pk
 from dlrm_tpu_torch.ops import sparse_update as su
 from dlrm_tpu_torch.ops.stream_kernels import (
     LAUNCHES,
+    _check,
+    _device,
+    _launch,
     gather_grads,
     kernel_library,
     stream_rows,
@@ -301,7 +314,7 @@ from dlrm_tpu_torch.optim.optimizers import (
     tree_leaves,
     tree_map,
 )
-from dlrm_tpu_torch.probes.common import time_ms
+from dlrm_tpu_torch.probes.common import graph_us, host_us, time_ms
 from dlrm_tpu_torch.train import harness
 from dlrm_tpu_torch.train.fused_step import make_fused_train_step
 from dlrm_tpu_torch.train.pipeline import DevicePrefetcher
@@ -673,6 +686,65 @@ def phase_new_kernels_vs_plain():
         n += 1
     log(f"phase 2b: {n} cases bit-identical to the plain versions (K4 "
         "called twice in each, with the same bits)")
+    launch_path_host_us()
+
+
+def launch_path_host_us():
+    """The host's µs to enqueue one call (host_us) of K1-K4 through their
+    wrappers on the phase-2 plan (K2 sgd at lr 0, which leaves the table
+    as it is), and of the parts of t3_reshape_add's call at [8, 128]:
+    _launch alone, the device switch and the two ways to the stream handle
+    it could take, the wrapper's checks, an output's allocation, one ATen
+    add beside them."""
+    d = 128
+    plan = make_stream_plan(MID_TABLES, d, MID_B, MID_HOTS, block_rows=2048)
+    hb = ragged_multihot_batch(np.random.default_rng(4), 13, MID_TABLES,
+                               MID_HOTS, MID_B)
+    sw = hb.with_stream_work(plan).to_device(CUDA, flat_hots=plan.hot).stream
+    gen = _gen(35)
+    dly = torch.randn((MID_B, len(MID_TABLES), d), generator=gen,
+                      device="cuda").transpose(0, 1)
+    table = torch.randn((plan.padded_rows, d), generator=gen, device="cuda")
+    k1 = (dly, sw.vals_u, sw.wts_u, sw.w2t)
+    items = (sw.rows_u, sw.item_block, sw.item_row0, sw.item_u)
+    g_u = window_grads(*k1)
+    r_u = stream_rows(plan, table, *items)
+    x = torch.zeros((8, 128), dtype=torch.int32, device="cuda")
+    out = torch.empty_like(x)
+
+    def device_switch():
+        with torch.cuda.device(x.device):
+            pass
+
+    calls = {
+        "window_grads": lambda: window_grads(*k1),
+        "stream_update": lambda: stream_update("sgd", plan, table, None, g_u,
+                                               *items, 0.0),
+        "stream_rows": lambda: stream_rows(plan, table, *items),
+        "window_pool": lambda: window_pool(plan, r_u, sw.vals_u, sw.wts_u,
+                                           sw.w2t),
+        "t3_reshape_add": lambda: pk.t3_reshape_add(x),
+        "_launch": lambda: _launch("t3_reshape_add", x.device, x.data_ptr(),
+                                   out.data_ptr(), 8, 128),
+        "torch.cuda.device": device_switch,
+        "current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "_cuda_getCurrentRawStream":
+            lambda: torch._C._cuda_getCurrentRawStream(0),
+        "current_device": torch.cuda.current_device,
+        "_check": lambda: _check("x", x, (torch.int32,)),
+        "_device": lambda: _device("t3_reshape_add", x),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "torch.add": lambda: torch.add(x, 1),
+    }
+    us = {}
+    for k, fn in calls.items():
+        try:
+            us[k] = host_us(fn, CUDA)
+        except RuntimeError as e:
+            raise SmokeFailure(f"phase 2b: {k}: {e}") from e
+    log("phase 2b: host us to enqueue a call (1,000 enqueues behind a "
+        "sleeping card): " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
 
 
 def host_batch(rng, plan, cfg, timing, touched=True):
@@ -1240,10 +1312,25 @@ def k2_bisect_vs_plain():
     return {"k2_bisect": {"err": err, "plain_ms": plain_ms}}
 
 
+def split_times(fn, calls=20):
+    """A call's time three ways: CUDA events around `calls` back-to-back
+    calls after one (ms; the host's enqueue where it is slower than the
+    card), the card's µs a call (graph_us: 100 calls in one CUDA graph) and
+    the host's µs a call to enqueue it (host_us: 1,000 enqueues with the
+    card kept busy)."""
+    return {"ms": time_ms(fn, CUDA, calls),
+            "device_us": graph_us(fn, CUDA), "host_us": host_us(fn, CUDA)}
+
+
+def _split_line(t):
+    return (f"{t['ms']:.4f} ms a call, {t['device_us']:.2f} us on the card, "
+            f"{t['host_us']:.2f} us on the host")
+
+
 def feasibility_vs_plain():
     """T2, T3, T4 and T6, small and at P6's sizes; at P6's sizes also the
-    kernel's, the plain version's and the library call's time, the bytes
-    and the operations."""
+    kernel's and the library call's time three ways (split_times), the
+    plain version's, the bytes and the operations."""
     def cases(small):
         gen = _gen(28)
         s, l, r, c = (2, 16, 32, 24) if small else (8, 128, 256, 128)
@@ -1278,7 +1365,7 @@ def feasibility_vs_plain():
                 lambda: pk.t6_revolve_accumulate(x6, steps, br),
                 lambda: pk.t6_revolve_accumulate_plain(x6, steps, br),
                 lambda: torch.sum(x6.view(nb, steps, br, d6), dim=1),
-                (0, 1e-5), 4 * (x6.numel() + nb * br * d6), x6.numel()),
+                (0, 0), 4 * (x6.numel() + nb * br * d6), x6.numel()),
         }
 
     out = {}
@@ -1288,10 +1375,17 @@ def feasibility_vs_plain():
             err = _held(f"{name} {'small' if small else 'P6'}", kern(),
                         plain(), rtol=rtol, atol=atol)
             if not small:
-                out[name] = {"err": err, "ms": time_ms(kern, CUDA, 20, warmup=0),
+                k, lb = split_times(kern), split_times(lib)
+                out[name] = {"err": err, "ms": k["ms"],
                              "plain_ms": time_ms(plain, CUDA, 20, warmup=0),
-                             "library_ms": time_ms(lib, CUDA, 20, warmup=0),
-                             "nbytes": nbytes, "nops": nops}
+                             "library_ms": lb["ms"], "nbytes": nbytes,
+                             "nops": nops, "extra": {
+                                 "device_us": k["device_us"],
+                                 "host_us": k["host_us"],
+                                 "library_device_us": lb["device_us"],
+                                 "library_host_us": lb["host_us"]}}
+                log(f"phase 5: {name} at P6's size: kernel {_split_line(k)}; "
+                    f"library {_split_line(lb)}")
     log("phase 5: t2_contract, t3_reshape_add, t4_onehot_accumulate and "
         "t6_revolve_accumulate hold against their plain versions, small and "
         "at P6's sizes (max abs " + ", ".join(
@@ -1299,12 +1393,60 @@ def feasibility_vs_plain():
     return out
 
 
+# T3 and T6 at a size where the card's time shows, both far beyond the
+# 50 MB L2: T3 [rows, cols] int32 (268 MB in, 268 MB out); T6 nb output
+# blocks of steps input blocks of [br, d] fp32 (805 MB in, 268 MB out)
+T3_SCALE = (16_384, 4_096)
+T6_SCALE = (2_048, 3, 256, 128)
+
+
+def feasibility_at_scale():
+    """T3 and T6 at T3_SCALE and T6_SCALE: bit for bit against their plain
+    versions, the library call within the reference's tolerance (T3 exact,
+    T6 atol 1e-5), and both timed three ways (split_times) beside the
+    bound. Returns name -> the at-scale figures."""
+    rows, cols = T3_SCALE
+    x3 = _randint(2**31 - 1, (rows, cols), 33)
+    nb, steps, br, d = T6_SCALE
+    x6 = torch.randn((nb * steps * br, d), generator=_gen(34), device="cuda")
+    cases = {
+        "t3_reshape_add": (
+            lambda: pk.t3_reshape_add(x3),
+            lambda: pk.t3_reshape_add_plain(x3),
+            lambda: torch.add(x3, 1), 0.0, 8 * x3.numel()),
+        "t6_revolve_accumulate": (
+            lambda: pk.t6_revolve_accumulate(x6, steps, br),
+            lambda: pk.t6_revolve_accumulate_plain(x6, steps, br),
+            lambda: torch.sum(x6.view(nb, steps, br, d), dim=1).view(-1, d),
+            1e-5, 4 * (x6.numel() + nb * br * d)),
+    }
+    out = {}
+    for name, (kern, plain, lib, lib_atol, nbytes) in cases.items():
+        got = kern()
+        err = _held(f"{name} at scale", got, plain())
+        _held(f"{name} at scale against its library call", got, lib(),
+              atol=lib_atol)
+        del got
+        k, lb = split_times(kern), split_times(lib)
+        bound_ms, bound_by = bound(nbytes, 0)
+        dev_ms = k["device_us"] / 1e3
+        out[name] = {"err": err, "nbytes": nbytes, "bound_ms": bound_ms,
+                     "bound_share": bound_ms / dev_ms, **k,
+                     "library": lb}
+        log(f"phase 5: {name} at scale ({nbytes} B): kernel "
+            f"{_split_line(k)}, {bound_ms / dev_ms:.1%} of its "
+            f"{bound_ms:.4f} ms {bound_by} bound on the card; library "
+            f"{_split_line(lb)}; kernel/library on the card "
+            f"{k['device_us'] / lb['device_us']:.3f}")
+    return out
+
+
 def p2b_takes():
     """P2b's two takes at their own [256, 128] shape (stream_variants.py
-    t1_variants), each through row_gather: its time, its plain version's,
-    the library call's (one indexing) and its bound (each gathered row read
-    and written once, the index read once). Launched after the probe path's
-    counts are read."""
+    t1_variants), each through row_gather: its time three ways
+    (split_times), its plain version's, the library call's (one indexing)
+    three ways and its bound (each gathered row read and written once, the
+    index read once). Launched after the probe path's counts are read."""
     dly = torch.randn((256, 128), generator=_gen(31), device="cuda")
     idx = _randint(256, (8, 128), 32)
     dly_t = dly.T.contiguous()  # [128, 256]: T1v2 takes its lanes
@@ -1321,9 +1463,9 @@ def p2b_takes():
         nbytes = 2 * rows * 128 * 4 + rows * 4
         bound_ms, _ = bound(nbytes, 0)
         log(f"  P2b {name} at [256, 128]: row_gather "
-            f"{time_ms(kern, CUDA, 20):.4f} ms, plain "
-            f"{time_ms(plain, CUDA, 20):.4f} ms, library "
-            f"{time_ms(lib, CUDA, 20):.4f} ms, bound {bound_ms:.5f} ms by "
+            f"{_split_line(split_times(kern))}; plain "
+            f"{time_ms(plain, CUDA, 20):.4f} ms; library "
+            f"{_split_line(split_times(lib))}; bound {bound_ms:.5f} ms by "
             f"bytes ({nbytes} B)")
 
 
@@ -1335,6 +1477,9 @@ def phase_probes():
                feasibility_vs_plain):
         held.update(fn())
         torch.cuda.empty_cache()
+    for name, rec in feasibility_at_scale().items():
+        held[name]["extra"]["at_scale"] = rec
+    torch.cuda.empty_cache()
 
     for k in pk.KERNELS:
         LAUNCHES[k] = 0
@@ -1409,6 +1554,7 @@ def phase_probes():
         entries.append(kernel_entry(name, source, replaces, launches[name],
                                     h["err"], ms, h["plain_ms"], nbytes,
                                     nops, lib_ms))
+        entries[-1].update(h.get("extra", {}))
     return entries
 
 
@@ -3962,10 +4108,32 @@ def phase_serving(root):
     return res
 
 
+def device_times():
+    """`python3 chip_smoke.py --device-times`: the build, then only the
+    launch path's host us (phase 2b) and phase 5's split times (T2-T6 at
+    P6's size, T3 and T6 at scale, P2b's takes), with their checks against
+    the plain versions; no other phase runs, and no "ok" line is printed."""
+    t_start = time.perf_counter()
+    try:
+        phase_build()
+        launch_path_host_us()
+        feasibility_vs_plain()
+        feasibility_at_scale()
+        p2b_takes()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(f"chip_smoke --device-times: done in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--device-times"]:
+        return device_times()
     t_start = time.perf_counter()
     try:
         phase_build()

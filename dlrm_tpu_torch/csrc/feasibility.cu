@@ -9,19 +9,45 @@
 //                        contracting dims); a 16 x 16 tiled fp32 product
 //                        through shared memory, FMA in (s, l) order.
 //   T3 reshape_add       out = x.reshape(-1).reshape(rows, cols) + 1 on
-//                        int32: each element's flat index and back.
+//                        int32 (kernel_feasibility.py:83). On a contiguous
+//                        x the reshape round trip is the identity, so this
+//                        is one flat streaming pass out[i] = x[i] + 1.
 //   T4 onehot_accumulate out[r] = sum of g[c] over the c with idx[c] == r
 //                        (the TPU built a one-hot matrix and ran it on the
 //                        MXU); one warp per output row, idx staged in
 //                        shared memory, added in index order from 0, so
 //                        the sum is deterministic.
 //   T6 revolve_accumulate out block k = sum over j < steps of x block
-//                        k * steps + j, added in j order from 0 (the TPU
-//                        carried the output block across grid steps).
+//                        k * steps + j, added in j order from +0.0f
+//                        (kernel_feasibility.py:162; the TPU carried the
+//                        output block across sequential grid steps).
 //
 // What bounds them: at the probes' sizes (a few hundred KB) the launch; at
 // scale, bytes for T3, T4 and T6 and operations for T2 (2 * K FLOPs per
 // output element against 4 * (R + C) bytes per k).
+//
+// T3 and T6 are built for the bytes bound. Neither has reuse or a product,
+// so neither uses shared memory or the tensor cores; each moves 16 bytes a
+// thread per access with streaming hints (__ldcs / __stcs: read once,
+// written once) and computes its offsets with no integer division.
+// - T3: each block takes a tile of kDepth x kThreads int4s (8 KB), a
+//   thread loading its kDepth int4s before its first store, neighbouring
+//   threads on neighbouring 16 bytes. The grid covers the array once, a
+//   tile a block (a loop over tiles takes what a grid's limit leaves). An
+//   earlier form with a persistent grid-stride grid of SMs x resident
+//   blocks took 190 us on an H100 at 268 MB in chip_smoke.py phase 5, 6 %
+//   behind torch.add's 178, so the grid follows the data. The
+//   wrapper gives out the same offset from a 16-byte boundary as x, so both
+//   take 16-byte accesses past a scalar head; a scalar tail takes the last
+//   numel % 4.
+// - T6: a loop inside the thread takes the place of the TPU's sequential
+//   grid dimension. A 2-D grid: blockIdx.y is the output block (looping
+//   when there are more than the y limit), x runs over the block's float4
+//   chunks. A thread loads its chunk of all `steps` input blocks (4 at a
+//   time, the rest predicated) before its first add, then adds them in j
+//   order with __fadd_rn from +0.0f: the plain version's bits. A scalar
+//   instance takes a block of numel % 4 != 0 or a start that is not 16-byte
+//   aligned.
 //
 // C interface for ctypes: each entry point returns cudaGetLastError().
 
@@ -32,6 +58,9 @@
 namespace {
 
 constexpr int kT = 16;  // T2 tile
+constexpr int kThreads = 256;  // T3 and T6 block
+constexpr int kDepth = 2;  // T3: int4 loads in flight a thread
+constexpr int64_t kTile = int64_t(kThreads) * kDepth;  // T3: int4s a block
 
 __global__ void contract_kernel(const float* __restrict__ a,
                                 const float* __restrict__ b,
@@ -56,13 +85,44 @@ __global__ void contract_kernel(const float* __restrict__ a,
   if (r < rows && c < cols) out[int64_t(r) * cols + c] = acc;
 }
 
-__global__ void reshape_add_kernel(const int* __restrict__ x,
-                                   int* __restrict__ out, int64_t rows,
-                                   int64_t cols) {
-  for (int64_t i = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;
-       i < rows * cols; i += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t row = i / cols, col = i % cols;  // flat -> [rows, cols]
-    out[row * cols + col] = x[i] + 1;
+// + 1 with int32 wrap-around, as ATen's add
+__device__ __forceinline__ int plus_one(int v) {
+  return int(unsigned(v) + 1u);
+}
+
+__device__ __forceinline__ int4 plus_one(int4 v) {
+  return make_int4(plus_one(v.x), plus_one(v.y), plus_one(v.z),
+                   plus_one(v.w));
+}
+
+// x[0, head) and x[head + 4 * n4, n) one element at a time (head, tail < 4),
+// x[head, head + 4 * n4) as n4 int4s, a tile of kTile a block
+__global__ void __launch_bounds__(kThreads)
+    reshape_add_kernel(const int* __restrict__ x, int* __restrict__ out,
+                       int64_t n, int head, int64_t n4) {
+  const int4* xv = reinterpret_cast<const int4*>(x + head);
+  int4* ov = reinterpret_cast<int4*>(out + head);
+  for (int64_t t0 = int64_t(blockIdx.x) * kTile; t0 < n4;
+       t0 += int64_t(gridDim.x) * kTile) {
+    const int64_t e0 = t0 + threadIdx.x;
+    if (t0 + kTile <= n4) {
+      int4 v[kDepth];
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) v[u] = __ldcs(xv + e0 + u * kThreads);
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) {
+        __stcs(ov + e0 + u * kThreads, plus_one(v[u]));
+      }
+    } else {  // the last, partial tile
+      for (int64_t e = e0; e < n4; e += kThreads) {
+        __stcs(ov + e, plus_one(__ldcs(xv + e)));
+      }
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 8) {  // the scalar head and tail
+    const int t = threadIdx.x;
+    const int64_t e = t < 4 ? t : head + 4 * n4 + (t - 4);
+    if (t < 4 ? t < head : e < n) __stcs(out + e, plus_one(__ldcs(x + e)));
   }
 }
 
@@ -85,24 +145,60 @@ __global__ void onehot_accumulate_kernel(const int* __restrict__ idx,
   }
 }
 
-__global__ void revolve_accumulate_kernel(const float* __restrict__ x,
-                                          float* __restrict__ out,
-                                          int64_t n_out_blocks, int steps,
-                                          int64_t block_elems) {
-  for (int64_t i = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;
-       i < n_out_blocks * block_elems; i += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t k = i / block_elems, e = i % block_elems;
-    float acc = 0.f;
-    for (int j = 0; j < steps; ++j) {
-      acc = __fadd_rn(acc, x[(k * steps + j) * block_elems + e]);
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
+__device__ __forceinline__ float4 add_rn(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// T is float4 (a block of whole float4s, 16-byte aligned) or float; n_e is
+// a block's count of T
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    revolve_accumulate_kernel(const T* __restrict__ x, T* __restrict__ out,
+                              int64_t n_out_blocks, int steps, int64_t n_e) {
+  for (int64_t k = blockIdx.y; k < n_out_blocks; k += gridDim.y) {
+    const T* xk = x + k * steps * n_e;
+    T* ok = out + k * n_e;
+    for (int64_t e = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; e < n_e;
+         e += int64_t(gridDim.x) * blockDim.x) {
+      T acc{};  // +0.0f
+      int j = 0;
+      for (; j + 4 <= steps; j += 4) {
+        T v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = __ldcs(xk + (j + u) * n_e + e);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc = add_rn(acc, v[u]);
+      }
+      const int rest = steps - j;  // < 4
+      T v[3];
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        if (u < rest) v[u] = __ldcs(xk + (j + u) * n_e + e);
+      }
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        if (u < rest) acc = add_rn(acc, v[u]);
+      }
+      __stcs(ok + e, acc);
     }
-    out[i] = acc;
   }
 }
 
-unsigned grid_for(int64_t n, int threads) {
-  const int64_t want = (n + threads - 1) / threads;
-  return unsigned(want < 65535 ? (want > 0 ? want : 1) : 65535);
+template <typename T>
+int launch_revolve(const void* x, void* out, int64_t n_out_blocks, int steps,
+                   int64_t n_e, cudaStream_t stream) {
+  const int64_t gx = (n_e + kThreads - 1) / kThreads;
+  const dim3 grid(unsigned(gx < (1 << 30) ? gx : (1 << 30)),
+                  unsigned(n_out_blocks < 65535 ? n_out_blocks : 65535));
+  revolve_accumulate_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), n_out_blocks, steps,
+      n_e);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -117,11 +213,23 @@ extern "C" int t2_contract(const float* a, const float* b, float* out,
   return int(cudaGetLastError());
 }
 
+// x, out [rows * cols] int32, at the same offset from a 16-byte boundary
 extern "C" int t3_reshape_add(const int* x, int* out, int64_t rows,
                               int64_t cols, void* stream) {
-  if (rows <= 0 || cols <= 0) return int(cudaErrorInvalidValue);
-  reshape_add_kernel<<<grid_for(rows * cols, 256), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(x, out, rows, cols);
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(x) % 16;
+  if (rows <= 0 || cols <= 0 || mis % 4 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != mis) {
+    return int(cudaErrorInvalidValue);
+  }
+  const int64_t n = rows * cols;
+  int64_t head = mis ? int64_t(16 - mis) / 4 : 0;  // elements to the boundary
+  if (head > n) head = n;
+  const int64_t n4 = (n - head) / 4;
+  const int64_t tiles = (n4 + kTile - 1) / kTile;
+  const unsigned grid = unsigned(tiles < 1 ? 1 : tiles < 0x7fffffff ? tiles
+                                                                  : 0x7fffffff);
+  reshape_add_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, out, n, int(head), n4);
   return int(cudaGetLastError());
 }
 
@@ -153,8 +261,12 @@ extern "C" int t6_revolve_accumulate(const float* x, float* out,
   if (n_out_blocks <= 0 || steps < 0 || block_elems <= 0) {
     return int(cudaErrorInvalidValue);
   }
-  revolve_accumulate_kernel<<<grid_for(n_out_blocks * block_elems, 256), 256,
-                              0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, n_out_blocks, steps, block_elems);
-  return int(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = block_elems % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return vec ? launch_revolve<float4>(x, out, n_out_blocks, steps,
+                                      block_elems / 4, s)
+             : launch_revolve<float>(x, out, n_out_blocks, steps,
+                                     block_elems, s);
 }

@@ -308,14 +308,19 @@ def t3_reshape_add_plain(x) -> torch.Tensor:
 
 
 def t3_reshape_add(x: torch.Tensor) -> torch.Tensor:
-    """x [rows, cols] int32 -> x.reshape(-1).reshape(rows, cols) + 1."""
+    """x [rows, cols] int32 -> x.reshape(-1).reshape(rows, cols) + 1. On
+    the card out lies at x's offset from a 16-byte boundary (a view into a
+    buffer up to 3 elements longer), so both take 16-byte accesses past
+    the same scalar head."""
     _check("x", x, _I32)
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D, got shape {tuple(x.shape)}")
     dev = _device("t3_reshape_add", x)
     if dev.type == "cpu":
         return t3_reshape_add_plain(x)
-    out = torch.empty_like(x)
+    lead = x.data_ptr() % 16 // 4
+    out = torch.empty_like(x) if lead == 0 else torch.empty(
+        x.numel() + lead, dtype=torch.int32, device=dev)[lead:].view(x.shape)
     _launch("t3_reshape_add", dev, x.data_ptr(), out.data_ptr(), x.shape[0],
             x.shape[1])
     return out

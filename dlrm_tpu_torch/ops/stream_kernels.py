@@ -272,10 +272,16 @@ def register_kernels(entry_points: dict) -> None:
 
 def _launch(name: str, dev: torch.device, *args) -> None:
     """Launch kernel `name` on dev's current stream with `args`, raise if
-    its entry point reports a CUDA error, and count the launch."""
-    with torch.cuda.device(dev):
-        err = _entry_point(name)(*args,
-                                 torch.cuda.current_stream().cuda_stream)
+    its entry point reports a CUDA error, and count the launch. The stream
+    goes as its raw handle, with no Stream object built, and the device is
+    switched only when dev is not the current one (the host's cost of a
+    launch: chip_smoke.py phase 2b)."""
+    fn = _entry_point(name)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"{_ENTRY_POINTS[name][1]} failed: CUDA error "
                            f"{err}")

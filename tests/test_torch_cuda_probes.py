@@ -7,10 +7,12 @@ chip_smoke.py phase 5 runs the same comparisons at the probes' own sizes.
 
 Bit-identical: row_gather, row_scatter_add_ (one add per element, unique
 rows), block_stream (the same two rounded ops), t3_reshape_add, k2_bisect's
-skeletons (the table unchanged) and V1 against K2 itself. Against the plain
+skeletons (the table unchanged), V1 against K2 itself and
+t6_revolve_accumulate (both add in j order from +0.0). Against the plain
 versions' other sum orders: k2_bisect V1/V2/V5/V6 rtol 1e-5 / atol 1e-6,
 t2_contract and t4_onehot_accumulate rtol 1e-5 / atol 1e-4 (the plain
-versions are a cuBLAS product and an atomic index_add_), t6 atol 1e-5."""
+versions are a cuBLAS product and an atomic index_add_). T3 and T6 also at
+ragged and misaligned shapes, and launched inside a CUDA graph's capture."""
 
 import numpy as np
 import pytest
@@ -182,5 +184,79 @@ def test_feasibility_kernels_match_plain(dev):
     xs = torch.randn((4 * 3 * 256, 128), generator=gen, device=dev)
     with _counted("t6_revolve_accumulate"):
         got = pk.t6_revolve_accumulate(xs, 3, 256)
-    torch.testing.assert_close(got, pk.t6_revolve_accumulate_plain(xs, 3, 256),
-                               rtol=0, atol=1e-5)
+    assert torch.equal(got, pk.t6_revolve_accumulate_plain(xs, 3, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 5), (1, 1), (1, 3), (7, 129),
+                                   (8, 128), (1000, 1001)])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_t3_reshape_add_kernel_ragged_and_misaligned(dev, shape, offset):
+    """numel % 4 != 0 and x[offset:] of a contiguous buffer (a start 4,
+    8 or 12 bytes past a 16-byte boundary): the scalar head and tail around
+    the int4 body; int32 wrap-around at the top of the range."""
+    n = shape[0] * shape[1]
+    buf = torch.from_numpy(np.random.default_rng(n).integers(
+        -2**31, 2**31 - 1, n + offset, dtype=np.int64).astype(np.int32))
+    buf[-1] = 2**31 - 1
+    x = buf.to(dev)[offset:].view(shape)
+    with _counted("t3_reshape_add"):
+        got = pk.t3_reshape_add(x)
+    assert got.shape == x.shape
+    assert torch.equal(got, pk.t3_reshape_add_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,steps,br,d", [
+    (2, 3, 5, 3), (3, 1, 4, 8), (1, 3, 256, 128), (2, 5, 3, 7),
+    (1, 4, 2, 4), (4, 9, 16, 128), (70_000, 1, 1, 4)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_t6_revolve_accumulate_kernel_ragged_and_misaligned(
+        dev, nb, steps, br, d, offset):
+    """Bit for bit against the plain version: blocks of numel % 4 != 0, a
+    start that is not 16-byte aligned (the scalar instance), steps 1, 4, 5
+    and 9 (past the loads of 4 at a time), more output blocks than the grid's
+    y limit (70,000)."""
+    n = nb * steps * br * d
+    buf = torch.randn((n + offset,), generator=_gen(dev, 6), device=dev)
+    buf[:: 7] = -0.0
+    x = buf[offset:].view(nb * steps * br, d)
+    with _counted("t6_revolve_accumulate"):
+        got = pk.t6_revolve_accumulate(x, steps, br)
+    assert torch.equal(got, pk.t6_revolve_accumulate_plain(x, steps, br))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["t3_reshape_add", "t6_revolve_accumulate"])
+def test_probe_kernel_launch_is_captured_by_a_cuda_graph(dev, kernel):
+    """The wrapper launches on the current stream, which is the capture
+    stream inside torch.cuda.graph (a side stream): the replayed graph
+    gives the eager call's bits into its own output. Each eager call and
+    the capture count one launch; replays count none."""
+    if kernel == "t3_reshape_add":
+        x = torch.from_numpy(np.random.default_rng(7).integers(
+            0, 1000, (37, 129)).astype(np.int32)).to(dev)
+        call = lambda: pk.t3_reshape_add(x)  # noqa: E731
+    else:
+        x = torch.randn((3 * 5 * 64, 128), generator=_gen(dev, 7), device=dev)
+        call = lambda: pk.t6_revolve_accumulate(x, 5, 64)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with _counted(kernel):
+            want = call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _counted(kernel):
+        with torch.cuda.graph(graph):
+            got = call()
+    n = tk.LAUNCHES[kernel]
+    got.fill_(0)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[kernel] == n
+    assert torch.equal(got, want)
+    with _counted(kernel):
+        again = call()
+    assert torch.equal(again, want)

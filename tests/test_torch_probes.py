@@ -253,6 +253,55 @@ def test_feasibility_t6_revolve_accumulate():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
+# T3 at shapes whose numel is not a multiple of 4, and a start that is not
+# 16-byte aligned (x[1:] of a contiguous buffer), held to the reference's
+# own expression x + 1 in jax.numpy, exactly
+@pytest.mark.parametrize("shape", [(3, 5), (1, 1), (7, 129), (8, 128)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_t3_reshape_add_ragged_matches_jnp(shape, offset):
+    n = shape[0] * shape[1]
+    buf = np.random.default_rng(n).integers(
+        -2**31, 2**31 - 1, n + offset, dtype=np.int64).astype(np.int32)
+    x = torch.from_numpy(buf)[offset:].view(shape)
+    got = pk.t3_reshape_add(x)
+    want = jnp.asarray(buf[offset:].reshape(shape)) + 1
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# T6: a block of numel % 4 != 0, steps 1, one output block, steps past the
+# kernel's loads of 4 at a time, against the reference's own expression in
+# jax.numpy (x.reshape(nb, steps, br, d).sum(axis=1)) at its atol 1e-5
+T6_SHAPES = [(2, 3, 5, 3), (3, 1, 4, 8), (1, 3, 256, 128), (2, 5, 3, 7),
+             (1, 4, 2, 4)]
+
+
+@pytest.mark.parametrize("nb,steps,br,d", T6_SHAPES)
+def test_t6_revolve_accumulate_ragged_matches_jnp(nb, steps, br, d):
+    x = np.random.default_rng(nb * steps).normal(
+        size=(nb * steps * br, d)).astype(np.float32)
+    got = pk.t6_revolve_accumulate(torch.from_numpy(x), steps, br)
+    want = jnp.asarray(x).reshape(nb, steps, br, d).sum(axis=1)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).reshape(nb * br, d),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("nb,steps,br,d", T6_SHAPES)
+def test_t6_revolve_accumulate_plain_adds_in_step_order(nb, steps, br, d):
+    """The plain version (the kernel's contract) equals, bit for bit, fp32
+    adds in j order from +0.0, negative zeros included."""
+    x = np.random.default_rng(steps).normal(
+        size=(nb, steps, br, d)).astype(np.float32)
+    x[..., 0] = -0.0  # 0.0 + -0.0 is +0.0: the sum starts from +0.0
+    want = np.zeros((nb, br, d), np.float32)
+    for j in range(steps):
+        want = want + x[:, j]
+    got = pk.t6_revolve_accumulate_plain(
+        torch.from_numpy(x.reshape(-1, d)), steps, br)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.reshape(nb * br, d).view(np.int32))
+
+
 # ------------------------------------------------------------------- P3
 TABLES = (300, 50, 700)
 B, H, BR, LR = 256, 2, 1024, 0.05
