@@ -62,15 +62,19 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      Pallas probes P1-P6): each probe kernel against its plain version at a
      small size and at its probe's own size (row_gather, row_scatter_add,
      block_stream, t3_reshape_add, t6_revolve_accumulate and the k2_bisect
-     skeletons bit-identical; k2_bisect V1/V2/V5/V6 within rtol 1e-5 /
-     atol 1e-6 of the plain sgd update and bit-identical to K2;
-     t2_contract and t4_onehot_accumulate rtol 1e-5 / atol 1e-4); T2-T6
-     and P2b's takes timed three ways beside their library calls (CUDA
-     events around 20 calls; the card's us a call from 100 calls in one
-     CUDA graph; the host's us to enqueue a call behind a sleeping card);
-     T3 and T6 also at a size past the L2 (T3_SCALE, T6_SCALE), bit for
-     bit against their plain versions, their library calls within the
-     reference's tolerance, with their share of the bytes bound; then every
+     skeletons bit-identical; k2_bisect V1/V2/V5/V6 within rtol 1e-5 / atol
+     1e-6 of the plain sgd update and bit-identical to K2;
+     t4_onehot_accumulate bit-identical to its plain version on CPU copies,
+     also with indices outside [0, rows), which both drop; t2_contract rtol
+     1e-5 / atol 1e-4); T2-T6 and P2b's takes timed three ways beside their
+     library calls (CUDA events around 20 calls; the card's us a call from
+     100 calls in one CUDA graph; the host's us to enqueue a call behind a
+     sleeping card); T3 and T6 also at a size past the L2 (T3_SCALE,
+     T6_SCALE), T2 at K 16,384 (T2_SCALE) and T4 at cap 4,096 into 4,096
+     rows (T4_SCALE): T3, T6 and T4 bit for bit against their plain
+     versions, T2 within twice the plain version's error against an fp64
+     product (plus 1e-5), their library calls beside them, with their share
+     of the bound; then every
      launch count set to 0, the six probes' main() at their own sizes (K2's
      bisection also at the main-path shape, with one index_add_ as V1's
      library call and K2 itself on a ladder of configurations from V1's sgd
@@ -1169,9 +1173,11 @@ def _gen(seed):
 
 
 def _held(name, got, want, rtol=0.0, atol=0.0):
-    """got against want: bit for bit when rtol = atol = 0, else within
-    them; returns the max abs difference."""
+    """got against want (on want's device: a plain version may run on CPU
+    copies): bit for bit when rtol = atol = 0, else within them; returns
+    the max abs difference."""
     torch.cuda.synchronize()
+    got = got.to(want.device)
     err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
     ok = (torch.equal(got, want) if rtol == 0 and atol == 0
           else torch.allclose(got, want, rtol=rtol, atol=atol))
@@ -1330,7 +1336,9 @@ def _split_line(t):
 def feasibility_vs_plain():
     """T2, T3, T4 and T6, small and at P6's sizes; at P6's sizes also the
     kernel's and the library call's time three ways (split_times), the
-    plain version's, the bytes and the operations."""
+    plain version's, the bytes and the operations. T4 is held bit for bit
+    against its plain version on CPU copies of its inputs (on the card the
+    plain version's index_add_ adds with atomics in no fixed order)."""
     def cases(small):
         gen = _gen(28)
         s, l, r, c = (2, 16, 32, 24) if small else (8, 128, 256, 128)
@@ -1346,23 +1354,29 @@ def feasibility_vs_plain():
         nb, steps, br, d6 = (2, 3, 5, 8) if small else (4, 3, 256, 128)
         x6 = torch.randn((nb * steps * br, d6), generator=gen, device="cuda")
         return {
+            # kernel, plain version, what it is held to, library call
             "t2_contract": (
                 lambda: pk.t2_contract(a, b),
+                lambda: pk.t2_contract_plain(a, b),
                 lambda: pk.t2_contract_plain(a, b),
                 lambda: torch.einsum("slr,sld->rd", a, b), (1e-5, 1e-4),
                 4 * (a.numel() + b.numel() + r * c), 2 * s * l * r * c),
             "t3_reshape_add": (
                 lambda: pk.t3_reshape_add(x3),
                 lambda: pk.t3_reshape_add_plain(x3),
+                lambda: pk.t3_reshape_add_plain(x3),
                 lambda: torch.add(x3, 1), (0, 0), 8 * x3.numel(),
                 x3.numel()),
             "t4_onehot_accumulate": (
                 lambda: pk.t4_onehot_accumulate(idx, g, rows),
                 lambda: pk.t4_onehot_accumulate_plain(idx, g, rows),
+                lambda: pk.t4_onehot_accumulate_plain(idx.cpu(), g.cpu(),
+                                                      rows),
                 lambda: torch.index_add(zeros, 0, idx.view(-1), g),
-                (1e-5, 1e-4), 4 * (cap + g.numel() + rows * d), g.numel()),
+                (0, 0), 4 * (cap + g.numel() + rows * d), g.numel()),
             "t6_revolve_accumulate": (
                 lambda: pk.t6_revolve_accumulate(x6, steps, br),
+                lambda: pk.t6_revolve_accumulate_plain(x6, steps, br),
                 lambda: pk.t6_revolve_accumulate_plain(x6, steps, br),
                 lambda: torch.sum(x6.view(nb, steps, br, d6), dim=1),
                 (0, 0), 4 * (x6.numel() + nb * br * d6), x6.numel()),
@@ -1370,10 +1384,10 @@ def feasibility_vs_plain():
 
     out = {}
     for small in (True, False):
-        for name, (kern, plain, lib, (rtol, atol), nbytes,
+        for name, (kern, plain, want, lib, (rtol, atol), nbytes,
                    nops) in cases(small).items():
             err = _held(f"{name} {'small' if small else 'P6'}", kern(),
-                        plain(), rtol=rtol, atol=atol)
+                        want(), rtol=rtol, atol=atol)
             if not small:
                 k, lb = split_times(kern), split_times(lib)
                 out[name] = {"err": err, "ms": k["ms"],
@@ -1395,49 +1409,139 @@ def feasibility_vs_plain():
 
 # T3 and T6 at a size where the card's time shows, both far beyond the
 # 50 MB L2: T3 [rows, cols] int32 (268 MB in, 268 MB out); T6 nb output
-# blocks of steps input blocks of [br, d] fp32 (805 MB in, 268 MB out)
+# blocks of steps input blocks of [br, d] fp32 (805 MB in, 268 MB out).
+# T2 [S, L, R] x [S, L, C] with K = S * L = 16,384: 1.074 GFLOP, a 16.03 us
+# operations bound (25.3 MB read). T4 cap hits into rows rows of d: where
+# its rows x cap / 32 ballots stop being cheap (no target).
 T3_SCALE = (16_384, 4_096)
 T6_SCALE = (2_048, 3, 256, 128)
+T2_SCALE = (8, 2_048, 256, 128)
+T4_SCALE = (4_096, 4_096, 128)
+
+
+def _t2_within_fp32(a, b, got):
+    """T2's criterion at scale: the kernel's max abs error against an fp64
+    product is no more than twice the fp32 plain version's, plus 1e-5.
+    Returns (kernel's, plain version's, einsum's) errors."""
+    exact = a.double().reshape(-1, a.shape[-1]).T @ b.double().reshape(
+        -1, b.shape[-1])
+    errs = tuple(float((t.double() - exact).abs().max()) for t in (
+        got, pk.t2_contract_plain(a, b), torch.einsum("slr,sld->rd", a, b)))
+    check(errs[0] <= 2 * errs[1] + 1e-5,
+          f"t2_contract at scale: max abs error {errs[0]:.3e} against fp64, "
+          f"over twice the plain version's {errs[1]:.3e} plus 1e-5")
+    log(f"phase 5: t2_contract at scale: max abs error against an fp64 "
+        f"product {errs[0]:.3e} (plain fp32 {errs[1]:.3e}, einsum "
+        f"{errs[2]:.3e})")
+    return errs
+
+
+def t4_drops_out_of_range():
+    """T4 with indices outside [0, rows) (below 0 and past the last row),
+    every hit on one row, d % 4 != 0 and a g that starts 4 bytes past a
+    16-byte boundary: bit for bit against its plain version on CPU copies,
+    which drops such a hit as the reference's one-hot does."""
+    errs = []
+    for cap, rows, d, spread, offset in ((256, 512, 128, True, 0),
+                                         (256, 512, 129, True, 1),
+                                         (37, 30, 3, True, 0),
+                                         (256, 30, 128, False, 1)):
+        idx = (_randint(rows + 10, (cap, 1), 40) - 5 if spread else
+               torch.full((cap, 1), rows // 2, dtype=torch.int32,
+                          device="cuda"))
+        buf = torch.randn((cap * d + offset,), generator=_gen(41),
+                          device="cuda")
+        g = buf[offset:].view(cap, d)
+        errs.append(_held(f"t4_onehot_accumulate cap {cap} rows {rows} d {d}",
+                          pk.t4_onehot_accumulate(idx, g, rows),
+                          pk.t4_onehot_accumulate_plain(idx.cpu(), g.cpu(),
+                                                        rows)))
+    log("phase 5: t4_onehot_accumulate drops indices outside [0, rows), bit "
+        "for bit against its plain version on CPU copies (4 cases, max abs "
+        f"{max(errs):.3e})")
 
 
 def feasibility_at_scale():
-    """T3 and T6 at T3_SCALE and T6_SCALE: bit for bit against their plain
-    versions, the library call within the reference's tolerance (T3 exact,
-    T6 atol 1e-5), and both timed three ways (split_times) beside the
-    bound. Returns name -> the at-scale figures."""
+    """T3, T6, T2 and T4 at T3_SCALE, T6_SCALE, T2_SCALE and T4_SCALE: T3,
+    T6 and T4 bit for bit against their plain versions (T4's on CPU copies)
+    and their library calls within the reference's tolerance (T3 exact, T6
+    atol 1e-5, T4 atol 1e-4); T2 by _t2_within_fp32. Each timed three ways
+    (split_times) beside its bound, also where its check failed (an A/B
+    reads the parent's times); any failed check fails the phase at the
+    end. Returns name -> the at-scale figures."""
     rows, cols = T3_SCALE
     x3 = _randint(2**31 - 1, (rows, cols), 33)
     nb, steps, br, d = T6_SCALE
     x6 = torch.randn((nb * steps * br, d), generator=_gen(34), device="cuda")
-    cases = {
+    s, l, r, c = T2_SCALE
+    gen = _gen(35)
+    a = torch.randn((s, l, r), generator=gen, device="cuda")
+    b = torch.randn((s, l, c), generator=gen, device="cuda")
+    cap, rows4, d4 = T4_SCALE
+    idx = _randint(rows4, (cap, 1), 36)
+    g = torch.randn((cap, d4), generator=_gen(37), device="cuda")
+    zeros = torch.zeros((rows4, d4), device="cuda")
+
+    def exact(name, plain, lib, lib_atol):
+        def hold(got):
+            err = _held(f"{name} at scale", got, plain())
+            _held(f"{name} at scale against its library call", got, lib(),
+                  atol=lib_atol)
+            return err
+        return hold
+
+    def t2_hold(got):
+        return _t2_within_fp32(a, b, got)[0]
+
+    cases = {  # kernel, its check (-> error), library call, bytes, ops
         "t3_reshape_add": (
             lambda: pk.t3_reshape_add(x3),
-            lambda: pk.t3_reshape_add_plain(x3),
-            lambda: torch.add(x3, 1), 0.0, 8 * x3.numel()),
+            exact("t3_reshape_add", lambda: pk.t3_reshape_add_plain(x3),
+                  lambda: torch.add(x3, 1), 0.0),
+            lambda: torch.add(x3, 1), 8 * x3.numel(), 0),
         "t6_revolve_accumulate": (
             lambda: pk.t6_revolve_accumulate(x6, steps, br),
-            lambda: pk.t6_revolve_accumulate_plain(x6, steps, br),
+            exact("t6_revolve_accumulate",
+                  lambda: pk.t6_revolve_accumulate_plain(x6, steps, br),
+                  lambda: torch.sum(x6.view(nb, steps, br, d), dim=1).view(
+                      -1, d), 1e-5),
             lambda: torch.sum(x6.view(nb, steps, br, d), dim=1).view(-1, d),
-            1e-5, 4 * (x6.numel() + nb * br * d)),
+            4 * (x6.numel() + nb * br * d), 0),
+        "t2_contract": (
+            lambda: pk.t2_contract(a, b), t2_hold,
+            lambda: torch.einsum("slr,sld->rd", a, b),
+            4 * (a.numel() + b.numel() + r * c), 2 * s * l * r * c),
+        "t4_onehot_accumulate": (
+            lambda: pk.t4_onehot_accumulate(idx, g, rows4),
+            exact("t4_onehot_accumulate",
+                  lambda: pk.t4_onehot_accumulate_plain(idx.cpu(), g.cpu(),
+                                                        rows4),
+                  lambda: torch.index_add(zeros, 0, idx.view(-1), g), 1e-4),
+            lambda: torch.index_add(zeros, 0, idx.view(-1), g),
+            4 * (cap + g.numel() + rows4 * d4), g.numel()),
     }
-    out = {}
-    for name, (kern, plain, lib, lib_atol, nbytes) in cases.items():
+    out, failed = {}, []
+    for name, (kern, hold, lib, nbytes, nops) in cases.items():
         got = kern()
-        err = _held(f"{name} at scale", got, plain())
-        _held(f"{name} at scale against its library call", got, lib(),
-              atol=lib_atol)
+        try:
+            err = hold(got)
+        except SmokeFailure as e:
+            failed.append(str(e))
+            err = float("nan")
+            log(f"phase 5: FAILED: {e}")
         del got
         k, lb = split_times(kern), split_times(lib)
-        bound_ms, bound_by = bound(nbytes, 0)
+        bound_ms, bound_by = bound(nbytes, nops)
         dev_ms = k["device_us"] / 1e3
-        out[name] = {"err": err, "nbytes": nbytes, "bound_ms": bound_ms,
-                     "bound_share": bound_ms / dev_ms, **k,
-                     "library": lb}
-        log(f"phase 5: {name} at scale ({nbytes} B): kernel "
-            f"{_split_line(k)}, {bound_ms / dev_ms:.1%} of its "
+        out[name] = {"err": err, "nbytes": nbytes, "nops": nops,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_share": bound_ms / dev_ms, **k, "library": lb}
+        log(f"phase 5: {name} at scale ({nbytes} B, {nops} fp32 ops): "
+            f"kernel {_split_line(k)}, {bound_ms / dev_ms:.1%} of its "
             f"{bound_ms:.4f} ms {bound_by} bound on the card; library "
             f"{_split_line(lb)}; kernel/library on the card "
             f"{k['device_us'] / lb['device_us']:.3f}")
+    check(not failed, "; ".join(failed))
     return out
 
 
@@ -1477,6 +1581,7 @@ def phase_probes():
                feasibility_vs_plain):
         held.update(fn())
         torch.cuda.empty_cache()
+    t4_drops_out_of_range()
     for name, rec in feasibility_at_scale().items():
         held[name]["extra"]["at_scale"] = rec
     torch.cuda.empty_cache()
@@ -4111,8 +4216,9 @@ def phase_serving(root):
 def device_times():
     """`python3 chip_smoke.py --device-times`: the build, then only the
     launch path's host us (phase 2b) and phase 5's split times (T2-T6 at
-    P6's size, T3 and T6 at scale, P2b's takes), with their checks against
-    the plain versions; no other phase runs, and no "ok" line is printed."""
+    P6's size, T3, T6, T2 and T4 at scale, P2b's takes), with their checks
+    against the plain versions; no other phase runs, and no "ok" line is
+    printed."""
     t_start = time.perf_counter()
     try:
         phase_build()

@@ -287,7 +287,9 @@ def t2_contract_plain(a, b) -> torch.Tensor:
 
 
 def t2_contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """einsum("slr,sld->rd", a, b) in fp32: a [S, L, R], b [S, L, C]."""
+    """einsum("slr,sld->rd", a, b) in fp32: a [S, L, R], b [S, L, C]. On
+    the card fp32 FMA (no TF32), K = S * L split over a cluster of CTAs and
+    summed in a fixed order: the same bits on every call."""
     _check("a", a, _F32)
     _check("b", b, _F32)
     if a.dim() != 3 or b.dim() != 3 or a.shape[:2] != b.shape[:2]:
@@ -327,15 +329,24 @@ def t3_reshape_add(x: torch.Tensor) -> torch.Tensor:
 
 
 def t4_onehot_accumulate_plain(idx, g, rows: int) -> torch.Tensor:
+    """The kernel's contract: a hit whose index lies outside [0, rows)
+    matches no row of the one-hot and adds nothing (it selects its hits
+    with a mask, which reads the count back to the host); each row's hits
+    added in index order from +0.0, as index_add_ adds them on the CPU (on
+    the card its atomics add them in no fixed order)."""
+    i = idx.reshape(-1)
+    keep = (i >= 0) & (i < rows)
     out = torch.zeros((rows, g.shape[1]), dtype=torch.float32,
                       device=g.device)
-    return out.index_add_(0, idx.reshape(-1).long(), g)
+    return out.index_add_(0, i[keep].long(), g[keep])
 
 
 def t4_onehot_accumulate(idx: torch.Tensor, g: torch.Tensor,
                          rows: int) -> torch.Tensor:
     """out [rows, d] with out[r] = sum of g[c] over the c with idx[c] == r
-    (T4's one-hot matmul oh.T @ g); on the card summed in index order."""
+    (T4's one-hot matmul oh.T @ g), added in index order from +0.0; an
+    index outside [0, rows) is dropped. On the card the plain version's
+    bits on the CPU."""
     _check("idx", idx, _I32)
     cap = idx.numel()
     _check("g", g, _F32)

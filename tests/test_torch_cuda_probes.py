@@ -7,12 +7,17 @@ chip_smoke.py phase 5 runs the same comparisons at the probes' own sizes.
 
 Bit-identical: row_gather, row_scatter_add_ (one add per element, unique
 rows), block_stream (the same two rounded ops), t3_reshape_add, k2_bisect's
-skeletons (the table unchanged), V1 against K2 itself and
-t6_revolve_accumulate (both add in j order from +0.0). Against the plain
+skeletons (the table unchanged), V1 against K2 itself,
+t6_revolve_accumulate (both add in j order from +0.0) and
+t4_onehot_accumulate against its plain version run on CPU copies of its
+inputs (index order from +0.0 on both; on the card the plain version's
+index_add_ adds with atomics in no fixed order). Against the plain
 versions' other sum orders: k2_bisect V1/V2/V5/V6 rtol 1e-5 / atol 1e-6,
-t2_contract and t4_onehot_accumulate rtol 1e-5 / atol 1e-4 (the plain
-versions are a cuBLAS product and an atomic index_add_). T3 and T6 also at
-ragged and misaligned shapes, and launched inside a CUDA graph's capture."""
+t2_contract rtol 1e-5 / atol 1e-4 (a cuBLAS product), and at T2_SCALE
+within twice the plain version's error against an fp64 product, plus
+1e-5; two t2_contract calls give the same bits. T2, T3, T4 and T6 also at
+ragged and misaligned shapes, and launched inside a CUDA graph's
+capture."""
 
 import numpy as np
 import pytest
@@ -179,12 +184,111 @@ def test_feasibility_kernels_match_plain(dev):
     g = torch.randn((256, 128), generator=gen, device=dev)
     with _counted("t4_onehot_accumulate"):
         got = pk.t4_onehot_accumulate(idx, g, 512)
-    torch.testing.assert_close(got, pk.t4_onehot_accumulate_plain(idx, g, 512),
-                               rtol=1e-5, atol=1e-4)
+    want = pk.t4_onehot_accumulate_plain(idx.cpu(), g.cpu(), 512)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
     xs = torch.randn((4 * 3 * 256, 128), generator=gen, device=dev)
     with _counted("t6_revolve_accumulate"):
         got = pk.t6_revolve_accumulate(xs, 3, 256)
     assert torch.equal(got, pk.t6_revolve_accumulate_plain(xs, 3, 256))
+
+
+# T2: R and C not multiples of 4, K = 1, K not a whole number of stages,
+# ragged tiles on the float4 path (132 x 36), the reference's shape
+T2_SHAPES = [(1, 1, 1, 1), (3, 7, 33, 17), (2, 129, 65, 3),
+             (4, 100, 132, 36), (8, 128, 256, 128)]
+# chip_smoke.py's T2_SCALE: K 16,384, 1.074 GFLOP
+T2_SCALE = (8, 2048, 256, 128)
+
+
+def _contract_inputs(dev, s, l, r, c, offset, seed):
+    """a [s, l, r] and b [s, l, c] on the card, each starting `offset`
+    floats into its buffer (offset 1: 4 bytes past a 16-byte boundary)."""
+    gen = _gen(dev, seed)
+    abuf = torch.randn((s * l * r + offset,), generator=gen, device=dev)
+    bbuf = torch.randn((s * l * c + offset,), generator=gen, device=dev)
+    return abuf[offset:].view(s, l, r), bbuf[offset:].view(s, l, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,l,r,c", T2_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_t2_contract_kernel_ragged_and_misaligned(dev, s, l, r, c, offset):
+    """Within rtol 1e-5 / atol 1e-4 of the plain version (a cuBLAS product,
+    TF32 off) at ragged shapes and at starts that are not 16-byte aligned
+    (the 4-byte copies); a second call gives the same bits (the cluster's
+    partials are summed in a fixed order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = _contract_inputs(dev, s, l, r, c, offset, 8)
+    with _counted("t2_contract"):
+        got = pk.t2_contract(a, b)
+    assert got.shape == (r, c)
+    torch.testing.assert_close(got, pk.t2_contract_plain(a, b), rtol=1e-5,
+                               atol=1e-4)
+    with _counted("t2_contract"):
+        again = pk.t2_contract(a, b)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_t2_contract_kernel_at_scale_within_fp32_error(dev):
+    """At T2_SCALE the kernel's max abs error against an fp64 product is no
+    more than twice the fp32 plain version's, plus 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s, l, r, c = T2_SCALE
+    a, b = _contract_inputs(dev, s, l, r, c, 0, 9)
+    with _counted("t2_contract"):
+        got = pk.t2_contract(a, b)
+    exact = a.double().reshape(-1, r).T @ b.double().reshape(-1, c)
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((pk.t2_contract_plain(a, b).double() - exact)
+                      .abs().max())
+    assert err <= 2 * plain_err + 1e-5, (err, plain_err)
+
+
+# T4: the CPU tests' ragged shapes, every hit on one row, indices outside
+# [0, rows), and cap 4,096 into 4,096 rows
+T4_CASES = [(1, 1, 1, "spread"), (37, 30, 3, "spread"),
+            (256, 512, 128, "spread"), (256, 512, 129, "spread"),
+            (256, 30, 128, "one_row"), (37, 1, 129, "one_row"),
+            (256, 512, 128, "out_of_range"), (37, 30, 3, "out_of_range"),
+            (4096, 4096, 128, "spread")]
+
+
+def _t4_inputs(cap, rows, d, kind):
+    rng = np.random.default_rng(cap * 1009 + rows * 31 + d)
+    if kind == "spread":
+        idx = rng.integers(0, rows, cap)
+    elif kind == "one_row":
+        idx = np.full(cap, rows // 2)
+    else:  # out_of_range: about a third of the hits in [0, rows)
+        idx = rng.integers(-rows - 3, 2 * rows + 3, cap)
+        idx[:2] = np.array([-1, rows])[:cap]
+    g = rng.normal(size=(cap, d)).astype(np.float32)
+    if d > 1:
+        g[:, 0] = -0.0  # each row's sum starts from +0.0
+    return idx.astype(np.int32).reshape(cap, 1), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,rows,d,kind", T4_CASES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_t4_onehot_accumulate_kernel_matches_plain_on_cpu(dev, cap, rows, d,
+                                                          kind, offset):
+    """Bit for bit against the plain version run on CPU copies of the
+    inputs (both add each row's hits in index order from +0.0 and drop an
+    index outside [0, rows)); offset 1: g starts 4 bytes past a 16-byte
+    boundary (the scalar instance, as d % 4 != 0 is)."""
+    idx, g = _t4_inputs(cap, rows, d, kind)
+    gbuf = torch.zeros((cap * d + offset,), device=dev)
+    gbuf[offset:] = torch.from_numpy(g.reshape(-1)).to(dev)
+    g_dev = gbuf[offset:].view(cap, d)
+    with _counted("t4_onehot_accumulate"):
+        got = pk.t4_onehot_accumulate(torch.from_numpy(idx).to(dev), g_dev,
+                                      rows)
+    want = pk.t4_onehot_accumulate_plain(torch.from_numpy(idx),
+                                         torch.from_numpy(g), rows)
+    assert got.shape == (rows, d)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -227,16 +331,26 @@ def test_t6_revolve_accumulate_kernel_ragged_and_misaligned(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["t3_reshape_add", "t6_revolve_accumulate"])
+@pytest.mark.parametrize("kernel", ["t2_contract", "t3_reshape_add",
+                                    "t4_onehot_accumulate",
+                                    "t6_revolve_accumulate"])
 def test_probe_kernel_launch_is_captured_by_a_cuda_graph(dev, kernel):
     """The wrapper launches on the current stream, which is the capture
     stream inside torch.cuda.graph (a side stream): the replayed graph
     gives the eager call's bits into its own output. Each eager call and
-    the capture count one launch; replays count none."""
-    if kernel == "t3_reshape_add":
+    the capture count one launch; replays count none. T2's is a cluster
+    launch (cudaLaunchKernelEx)."""
+    if kernel == "t2_contract":
+        a, b = _contract_inputs(dev, 8, 128, 256, 128, 0, 7)
+        call = lambda: pk.t2_contract(a, b)  # noqa: E731
+    elif kernel == "t3_reshape_add":
         x = torch.from_numpy(np.random.default_rng(7).integers(
             0, 1000, (37, 129)).astype(np.int32)).to(dev)
         call = lambda: pk.t3_reshape_add(x)  # noqa: E731
+    elif kernel == "t4_onehot_accumulate":
+        idx, g = (torch.from_numpy(v).to(dev)
+                  for v in _t4_inputs(256, 512, 128, "out_of_range"))
+        call = lambda: pk.t4_onehot_accumulate(idx, g, 512)  # noqa: E731
     else:
         x = torch.randn((3 * 5 * 64, 128), generator=_gen(dev, 7), device=dev)
         call = lambda: pk.t6_revolve_accumulate(x, 5, 64)  # noqa: E731
@@ -256,7 +370,7 @@ def test_probe_kernel_launch_is_captured_by_a_cuda_graph(dev, kernel):
     graph.replay()
     torch.cuda.synchronize()
     assert tk.LAUNCHES[kernel] == n
-    assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     with _counted(kernel):
         again = call()
-    assert torch.equal(again, want)
+    assert torch.equal(again.view(torch.int32), want.view(torch.int32))

@@ -302,6 +302,89 @@ def test_t6_revolve_accumulate_plain_adds_in_step_order(nb, steps, br, d):
                                   want.reshape(nb * br, d).view(np.int32))
 
 
+# T2 at ragged shapes (R and C not multiples of 4, K = 1, a K that is not
+# a whole number of the kernel's stages) and the reference's own, with an a
+# that starts 4 bytes past a 16-byte boundary (a[1:] of a contiguous
+# buffer), held to the reference's expression in jax.numpy at its atol 1e-3
+T2_SHAPES = [(1, 1, 1, 1), (3, 7, 33, 17), (2, 129, 65, 3), (8, 128, 256, 128)]
+
+
+@pytest.mark.parametrize("s,l,r,c", T2_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_t2_contract_ragged_matches_jnp(s, l, r, c, offset):
+    rng = np.random.default_rng(s * l + r + c)
+    abuf = rng.normal(size=s * l * r + offset).astype(np.float32)
+    b = rng.normal(size=(s, l, c)).astype(np.float32)
+    a = torch.from_numpy(abuf)[offset:].view(s, l, r)
+    got = pk.t2_contract(a, torch.from_numpy(b))
+    want = jnp.einsum("slr,sld->rd",
+                      jnp.asarray(abuf[offset:].reshape(s, l, r)),
+                      jnp.asarray(b))
+    assert got.shape == (r, c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-3)
+
+
+# T4 at ragged shapes, with every hit on one row and with indices outside
+# [0, rows) (negative and past the last row), held to the reference's own
+# expression in jax.numpy: the one-hot (idx.reshape(cap, 1) == iota) and
+# dot_general at HIGHEST, within its atol 1e-4
+def _t4_inputs(cap, rows, d, kind):
+    rng = np.random.default_rng(cap * 1009 + rows * 31 + d)
+    if kind == "spread":
+        idx = rng.integers(0, rows, cap)
+    elif kind == "one_row":
+        idx = np.full(cap, rows // 2)
+    else:  # out_of_range: about a third of the hits in [0, rows)
+        idx = rng.integers(-rows - 3, 2 * rows + 3, cap)
+        idx[:2] = np.array([-1, rows])[:cap]  # one below, one past
+    g = rng.normal(size=(cap, d)).astype(np.float32)
+    return idx.astype(np.int32).reshape(cap, 1), g
+
+
+T4_KINDS = ["spread", "one_row", "out_of_range"]
+
+
+@pytest.mark.parametrize("kind", T4_KINDS)
+@pytest.mark.parametrize("d", [1, 3, 128, 129])
+@pytest.mark.parametrize("rows", [1, 30, 512])
+@pytest.mark.parametrize("cap", [1, 37, 256])
+def test_t4_onehot_accumulate_ragged_matches_jnp(cap, rows, d, kind):
+    idx, g = _t4_inputs(cap, rows, d, kind)
+    got = pk.t4_onehot_accumulate(torch.from_numpy(idx), torch.from_numpy(g),
+                                  rows)
+    iota = jax.lax.broadcasted_iota(jnp.int32, (cap, rows), 1)
+    oh = (jnp.asarray(idx).reshape(cap, 1) == iota).astype(jnp.float32)
+    want = jax.lax.dot_general(
+        oh, jnp.asarray(g), dimension_numbers=(((0,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32)
+    assert got.shape == (rows, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("cap,rows,d,kind", [
+    (1, 1, 1, "spread"), (37, 30, 3, "out_of_range"),
+    (256, 512, 128, "spread"), (256, 512, 129, "out_of_range"),
+    (256, 30, 128, "one_row"), (4096, 8, 129, "spread"),
+    (20_000, 3, 64, "out_of_range")])
+def test_t4_onehot_accumulate_plain_adds_in_index_order(cap, rows, d, kind):
+    """The plain version (the kernel's contract, which the card holds bit
+    for bit) equals fp32 adds in index order from +0.0, out-of-range hits
+    dropped, negative zeros included."""
+    idx, g = _t4_inputs(cap, rows, d, kind)
+    g[:, 0] = -0.0  # 0.0 + -0.0 is +0.0: each row's sum starts from +0.0
+    want = np.zeros((rows, d), np.float32)
+    for c, r in enumerate(idx[:, 0]):
+        if 0 <= r < rows:
+            want[r] = want[r] + g[c]
+    got = pk.t4_onehot_accumulate_plain(torch.from_numpy(idx),
+                                        torch.from_numpy(g), rows)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
 # ------------------------------------------------------------------- P3
 TABLES = (300, 50, 700)
 B, H, BR, LR = 256, 2, 1024, 0.05

@@ -88,6 +88,7 @@ def test_default_device_entry_points_raise_without_cuda():
         scan_probe,
         serve_flagship,
         stream_variants,
+        t2_sweep,
     )
     from dlrm_tpu_torch.train.harness import Trainer
     from dlrm_tpu_torch.train.pipeline import DevicePrefetcher
@@ -124,7 +125,7 @@ def test_default_device_entry_points_raise_without_cuda():
         # the probes time the card
         scan_probe.main, pallas_probe.main, stream_variants.main,
         revolve_probe.main, k2_bisect.main, kernel_feasibility.main,
-        infer_bench.main, serve_flagship.main,
+        infer_bench.main, serve_flagship.main, t2_sweep.main,
         # quantized serving, before it draws a batch
         lambda: v1_main(["--mini-batch-size=2", "--data-size=2",
                          "--inference-only", "--quantize-emb-with-bit=4"]),
