@@ -70,7 +70,7 @@
 // another instantiation). C interface for ctypes: k2_stream_update returns
 // cudaGetLastError().
 
-#include "k2_update.cuh"  // hash32 (the kernel there is P3's)
+#include "k2_update.cuh"  // hash32
 #include "u_layout.cuh"
 
 namespace {

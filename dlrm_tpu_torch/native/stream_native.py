@@ -1,9 +1,10 @@
 """ctypes binding for the native stream-work builder (stream_work.cc).
 
 The port's copy of dlrm_tpu/native/stream_native.py. Fast path for
-ops/stream_plan.build_stream_work: same plan geometry, same outputs, except
-intra-run slot order (the numpy path row-sorts each block's run; the native
-path fills in scan order, and no kernel depends on it). Built with g++ at
+ops/stream_plan.build_stream_work: same plan geometry, same outputs slot
+for slot (each block's run sorted by row, stably, as the numpy path sorts
+it: K2 and k2_bisect depend on that order, and
+tests/test_torch_probe_tile_ranges.py checks it here too). Built with g++ at
 first use into the package's build directory; where no compiler is present,
 available() is False and build_stream_work takes the numpy path.
 """

@@ -7,9 +7,11 @@ pallas_probe and kernel_feasibility).
   row_scatter_add_      table[idx[k]] += delta[k] in place, idx unique (P5b)
   block_stream          out[blk] = t[blk] * scale + shift over a static or
                         data-dependent block walk, in place or not, with 1,
-                        2 or 4 loads in flight per thread (P2a, P4, T5)
+                        2 or 4 loads in flight per thread, a short CTA per
+                        span of a block (P2a, P4, T5)
   k2_bisect             K2's sgd update with its stages compiled in or out,
-                        variants V1-V6 (P3)
+                        variants V1-V6, a CTA per 128-row tile that finds
+                        its hits by binary search (P3)
   t2_contract           einsum("slr,sld->rd")                  (T2)
   t3_reshape_add        x.reshape(-1).reshape(x.shape) + 1    (T3)
   t4_onehot_accumulate  out[r] = sum of g[c] with idx[c] == r  (T4)
@@ -227,6 +229,9 @@ def block_stream(
 # variant -> does it apply the sums (V3 and V4 are skeletons: table unchanged)
 K2_VARIANTS = {"V1": True, "V2": True, "V3": False, "V4": False, "V5": False,
                "V6": True}
+# V5 and V6 stage a 128-row tile in shared memory (csrc/k2_bisect.cu
+# kMaxSmem): 128 * d fp32 within 227 KB less 4 KB of the kernel's own
+K2_BULK_MAX_D = (232448 - 4096) // (128 * 4)
 
 
 def k2_bisect_plain(variant, plan: StreamPlan, table, g_u, rows_u,
@@ -250,12 +255,15 @@ def k2_bisect(
     item_u: torch.Tensor,  # [M] int32
     lr: float,
 ) -> torch.Tensor:
-    """The sgd update (fp32 table) of K2's first, tile-per-CTA design with
-    its stages switched as P3's variants: V1 gives K2's bits (both sum each
-    row's hits in slot order from zero), V2 writes every row of each
-    visited 128-row tile, V3 and V4 are the skeletons (no G row read), V5
-    and V6 are V4 and V2 with the tile stored by one bulk copy. Returns
-    table, in place."""
+    """K2's sgd update (fp32 table) by one CTA per (block, 128-row tile),
+    which finds its tile's hits by binary search over the block's row-sorted
+    slots and sums each row's run in registers, with its stages switched as
+    P3's variants: V1 gives K2's bits (both sum each row's hits in slot
+    order from zero), V2 writes every row of each visited tile, V3 and V4
+    are the skeletons (no G row read), V5 and V6 are V4 and V2 with the
+    tile stored by one bulk copy. On the card rows move 16 bytes at a time:
+    d must be a multiple of 4 (at most K2_BULK_MAX_D for V5 and V6) and
+    table and g_u 16-byte aligned. Returns table, in place."""
     if variant not in K2_VARIANTS:
         raise ValueError(f"variant must be one of {sorted(K2_VARIANTS)}, "
                          f"got {variant!r}")
@@ -271,6 +279,14 @@ def k2_bisect(
     if dev.type == "cpu":
         return k2_bisect_plain(variant, plan, table, g_u, rows_u, item_block,
                                item_row0, item_u, lr)
+    if d % 4 or table.data_ptr() % 16 or g_u.data_ptr() % 16:
+        raise ValueError(f"k2_bisect moves rows 16 bytes at a time: d ({d}) "
+                         "must be a multiple of 4 and table and g_u must "
+                         "start 16-byte aligned")
+    if variant in ("V5", "V6") and d > K2_BULK_MAX_D:
+        raise ValueError(f"k2_bisect {variant} stages a 128-row tile in "
+                         f"shared memory: d must be at most {K2_BULK_MAX_D}, "
+                         f"got {d}")
     scratch = torch.empty((2, max(plan.num_blocks, 1)), dtype=torch.int32,
                           device=dev)
     _launch("k2_bisect", dev, int(variant[1:]), table.data_ptr(),

@@ -1,8 +1,9 @@
 """P3: which of K2's stages costs its time (the port of
-bench_scripts/k2_bisect.py). Runs the variants of csrc/k2_bisect.cu — the
-sgd update on an fp32 table of K2's first, tile-per-CTA design
-(csrc/k2_update.cuh) with its stages compiled in or out — at two shapes,
-each on the full cover item list:
+bench_scripts/k2_bisect.py). Runs the variants of csrc/k2_bisect.cu — K2's
+sgd update on an fp32 table by one CTA per (block, 128-row tile), which
+finds its tile's hits by binary search over the block's row-sorted slots
+and sums each row's run in registers, with its stages compiled in or out —
+at two shapes, each on the full cover item list:
 
   probe      the reference's: 26 tables x 200,000 rows, d 128, batch 2048,
              8 uniform hits per bag, block_rows 2048;

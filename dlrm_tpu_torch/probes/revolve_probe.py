@@ -2,7 +2,9 @@
 2048-row blocks (the port of bench_scripts/revolve_probe.py, which isolated
 the TPU pipeline's cost of a data-dependent block walk: K2's skeleton).
 
-The reference's variants, as they map to the card (block_stream):
+The reference's variants, as they map to the card (block_stream: one short
+CTA per span of a block, 8 KB at depth 1 and 16 KB at depths 2 and 4,
+twice that on a walk read from ib):
   S  static map, separate output
   D  the walk read from ib, separate output
   M  the walk read from ib, in place (the reference's manual write)
@@ -33,7 +35,7 @@ from dlrm_tpu_torch.probes.common import probe_device, time_ms
 BR = 2048
 NBLK = 1024
 D_ = 128
-ITERS = 8
+ITERS = 20  # the variants and E differ by about 1 %
 VARIANTS = "S,D,M,N,P,Q,E,X,C"
 
 

@@ -27,7 +27,7 @@ R = 26 * 200_000 // 2048 * 2048
 D = 128
 BR = 2048
 SCALE, SHIFT = 1.000001, 0.5
-ITERS = 5
+ITERS = 20  # the in-place stream and copy_ differ by well under 1 %
 
 
 def t1_variants(dev) -> dict:

@@ -6,18 +6,21 @@ so on a machine without JAX it runs as
 chip_smoke.py phase 5 runs the same comparisons at the probes' own sizes.
 
 Bit-identical: row_gather, row_scatter_add_ (one add per element, unique
-rows), block_stream (the same two rounded ops), t3_reshape_add, k2_bisect's
-skeletons (the table unchanged), V1 against K2 itself,
-t6_revolve_accumulate (both add in j order from +0.0) and
+rows), block_stream (the same two rounded ops; blocks that are not whole
+spans of its grid, a ragged last block, walks of one block and permuted,
+in place and not, and a launch captured in a CUDA graph), t3_reshape_add,
+k2_bisect's skeletons (the table unchanged) and its full variants against
+the plain sgd update and K2 itself (also on plans of blocks holding
+multiples of 128 hits, hit-free blocks and a row of 6,000 hits, at d 64
+and 128), t6_revolve_accumulate (both add in j order from +0.0) and
 t4_onehot_accumulate against its plain version run on CPU copies of its
 inputs (index order from +0.0 on both; on the card the plain version's
 index_add_ adds with atomics in no fixed order). Against the plain
-versions' other sum orders: k2_bisect V1/V2/V5/V6 rtol 1e-5 / atol 1e-6,
-t2_contract rtol 1e-5 / atol 1e-4 (a cuBLAS product), and at T2_SCALE
-within twice the plain version's error against an fp64 product, plus
-1e-5; two t2_contract calls give the same bits. T2, T3, T4 and T6 also at
-ragged and misaligned shapes, and launched inside a CUDA graph's
-capture."""
+versions' other sum orders: t2_contract rtol 1e-5 / atol 1e-4 (a cuBLAS
+product), and at T2_SCALE within twice the plain version's error against
+an fp64 product, plus 1e-5; two t2_contract calls give the same bits.
+T2, T3, T4 and T6 also at ragged and misaligned shapes, and launched
+inside a CUDA graph's capture."""
 
 import numpy as np
 import pytest
@@ -26,7 +29,11 @@ import torch
 from dlrm_tpu_torch.data.random_data import ragged_multihot_batch
 from dlrm_tpu_torch.ops import probe_kernels as pk
 from dlrm_tpu_torch.ops import stream_kernels as tk
-from dlrm_tpu_torch.ops.stream_plan import make_stream_plan
+from dlrm_tpu_torch.ops.stream_plan import (
+    build_stream_work,
+    make_stream_plan,
+    touched_update_items,
+)
 
 
 @pytest.fixture
@@ -105,16 +112,30 @@ def test_row_scatter_add_skips_rows_outside_the_table(dev):
     assert torch.equal(got[untouched], table[untouched])
 
 
+# (rows, d, block_rows): blocks that are not whole spans of the grid (its
+# CTAs cover 8-16 KB, twice that on a walk from ib), a ragged last block on
+# the static map (a walk takes whole blocks: rows cut to them), one block
+BLOCK_SHAPES = [(480, 128, 48), (1000, 128, 48), (16 * 100, 128, 100),
+                (5 * 33, 12, 33), (2048, 128, 2048)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("walk", ["static", "dynamic"])
+@pytest.mark.parametrize("rows,d,br", BLOCK_SHAPES)
+@pytest.mark.parametrize("walk", ["static", "one", "dynamic"])
 @pytest.mark.parametrize("in_place", [False, True], ids=["out", "aliased"])
 @pytest.mark.parametrize("depth", [1, 2, 4])
-def test_block_stream_kernel_matches_plain(dev, walk, in_place, depth):
-    br, nblk, d = 48, 10, 128
-    t = torch.randn((nblk * br, d), generator=_gen(dev, 2), device=dev)
-    ib = (torch.from_numpy(np.random.default_rng(2).permutation(nblk)[:7]
-                           .astype(np.int32)).to(dev)
-          if walk == "dynamic" else None)
+def test_block_stream_kernel_matches_plain(dev, rows, d, br, walk, in_place,
+                                           depth):
+    """dynamic: a permuted walk over 7 of every 10 blocks (the others keep
+    their values); one: a walk of one block."""
+    if walk != "static":
+        rows -= rows % br
+    nblk = -(-rows // br)
+    t = torch.randn((rows, d), generator=_gen(dev, 2), device=dev)
+    perm = np.random.default_rng(2).permutation(nblk)
+    ib = (None if walk == "static" else torch.from_numpy(
+        (perm[:1] if walk == "one" else perm[:max(1, nblk * 7 // 10)])
+        .astype(np.int32)).to(dev))
     kw = dict(scale=1.000001, shift=0.5, depth=depth, block_rows=br)
     out0 = torch.full_like(t, -7.0)
     want = pk.block_stream_plain(t.clone(), ib,
@@ -128,12 +149,33 @@ def test_block_stream_kernel_matches_plain(dev, walk, in_place, depth):
 
 
 @pytest.mark.cuda
-def test_block_stream_kernel_ragged_static_map(dev):
-    t = torch.randn((1000, 128), generator=_gen(dev, 3), device=dev)
-    kw = dict(scale=2.0, shift=-1.0, block_rows=96)
-    want = pk.block_stream_plain(t, out=torch.empty_like(t), **kw)
+def test_block_stream_launch_is_captured_by_a_cuda_graph(dev):
+    """A permuted walk in place, captured: each replay applies the update
+    once more, as the eager calls do."""
+    br, nblk = 64, 12
+    t = torch.randn((nblk * br, 128), generator=_gen(dev, 8), device=dev)
+    ib = torch.from_numpy(np.random.default_rng(8).permutation(nblk)[:9]
+                          .astype(np.int32)).to(dev)
+    kw = dict(scale=1.5, shift=-0.25, block_rows=br)
+    want = t.clone()
+    for _ in range(3):
+        pk.block_stream_plain(want, ib, **kw)
+    got = t.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with _counted("block_stream"):
+            pk.block_stream(got, ib, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
     with _counted("block_stream"):
-        got = pk.block_stream(t, out=torch.empty_like(t), **kw)
+        with torch.cuda.graph(graph):
+            pk.block_stream(got, ib, **kw)
+    n = tk.LAUNCHES["block_stream"]
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["block_stream"] == n
     assert torch.equal(got, want)
 
 
@@ -158,12 +200,74 @@ def test_k2_bisect_kernel_matches_plain(dev, variant):
         got = pk.k2_bisect(variant, plan, table.clone(), g_u, *items, 0.05)
     if pk.K2_VARIANTS[variant]:
         assert not torch.equal(got, table)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        assert torch.equal(got, want)
         k2 = tk.stream_update("sgd", plan, table.clone(), None, g_u, *items,
                               0.05)[0]
         assert torch.equal(got, k2)  # V1 is K2; the others write its values
     else:
         assert torch.equal(got, table)
+
+
+def _k2_trouble(dev, case, d, touched):
+    """Plans where the tile search can go wrong: 'x128' blocks holding 128
+    and 384 hits (the next block's rows follow with no sentinel), a
+    hit-free block and a one-hit block; 'sparse' mostly hit-free blocks
+    (sentinel-only items, empty tiles); 'skewed' one row with 6,000 hits
+    beside a Pareto tail."""
+    rng = np.random.default_rng(9)
+    if case == "x128":
+        block = [0] * 128 + [1] * 384 + [3]
+        rows = np.array(block) * 1024 + rng.integers(0, 1024, len(block))
+        tables, b, hot = (4096, 2100), len(block), 1
+        idx = np.stack([rows, 2048 + rng.integers(0, 52, b)])[:, :, None]
+    elif case == "sparse":
+        tables, b, hot = (100_000, 40_000), 8, 2
+        idx = np.stack([rng.integers(0, n, (b, hot)) for n in tables])
+    else:
+        tables, b, hot = (5000, 9000), 300, 20
+        idx = np.stack([np.minimum(rng.pareto(1.1, (b, hot)) * 3, n - 1)
+                        for n in tables])
+        idx[0, :, :] = 777  # 6,000 hits on one row
+    plan = make_stream_plan(tables, d, b, hot, block_rows=1024)
+    work = build_stream_work(plan, idx.astype(np.int32))
+    if touched:
+        work = touched_update_items(plan, work)
+    items = tuple(torch.from_numpy(a).to(dev) for a in (
+        work.rows_u, work.item_block, work.item_row0, work.item_u))
+    gen = _gen(dev, 10)
+    table = torch.randn((plan.padded_rows, d), generator=gen, device=dev)
+    g_u = torch.randn((plan.u_total, d), generator=gen, device=dev)
+    return plan, table, g_u, items
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["x128", "sparse", "skewed"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("touched", [False, True], ids=["full", "touched"])
+def test_k2_bisect_kernel_trouble_cases(dev, case, d, touched):
+    """V1-V6 bit for bit: the full variants against the plain sgd update
+    and K2, the skeletons leaving the table unchanged; one launch a call."""
+    plan, table, g_u, items = _k2_trouble(dev, case, d, touched)
+    want = pk.k2_bisect_plain("V1", plan, table.clone(), g_u, *items, 0.05)
+    k2 = tk.stream_update("sgd", plan, table.clone(), None, g_u, *items,
+                          0.05)[0]
+    assert torch.equal(k2, want) and not torch.equal(want, table)
+    for variant, sums in pk.K2_VARIANTS.items():
+        with _counted("k2_bisect"):
+            got = pk.k2_bisect(variant, plan, table.clone(), g_u, *items,
+                               0.05)
+        assert torch.equal(got, want if sums else table), variant
+
+
+@pytest.mark.cuda
+def test_k2_bisect_refuses_rows_it_cannot_move(dev):
+    """Rows move 16 bytes at a time: a d that is not a multiple of 4, or a
+    bulk variant's tile past shared memory, is refused in words."""
+    for d, variant, match in ((6, "V1", "multiple of 4"),
+                              (pk.K2_BULK_MAX_D + 2, "V6", "at most")):
+        plan, table, g_u, items = _k2_trouble(dev, "sparse", d, False)
+        with pytest.raises(ValueError, match=match):
+            pk.k2_bisect(variant, plan, table, g_u, *items, 0.05)
 
 
 @pytest.mark.cuda
