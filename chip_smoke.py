@@ -11,7 +11,9 @@ trainer (cli.main) on the reference's scripts; then the sharded stream path
 over several ranks (K2 on every shard), and the fused butterfly over several
 ranks (coalesce_rows and row_scatter_add on every shard) behind both
 trainers; then serving: quantized inference on one card and over the
-ranks, and the forward's export.
+ranks, and the forward's export; then the tools, scripts and entry
+points (the flagship forward, the multi-rank dry run, the MLPerf proxy, the
+shell scripts' twins, visualize and the launcher).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -233,13 +235,45 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      the single card's accuracy line. (e) --save-onnx after a train step
      and after quantized serving, each archive loaded back equal to the
      eager forward bit for bit; --plot-compute-graph's file.
+  12. the tools, scripts and entry points (dlrm_tpu_torch/
+     graft_entry.py, scripts/, tools/visualize.py), each subprocess run
+     with DLRM_TORCH_LAUNCHES_TO so that its processes report their kernel
+     launches. (a) graft_entry.entry()'s flagship forward at full width (26
+     x 200,000 x 128 fp32 tables, batch 1,024, 8 hits a bag, bf16 compute):
+     ms a forward (CUDA events), peak memory, and the same params' forward
+     on the CPU within 1e-2 (the bf16 tower). (b) dryrun_multichip(4): the
+     ten legs of __graft_entry__.py's dry run, one step each on 4 ranks
+     (NCCL on 4 cards, else 4 ranks sharing the card over staged gloo), K2
+     on the streamed legs and both fused kernels on the fused ones; each
+     leg's loss, and a butterfly leg's loss after its step, within atol
+     2e-3 of the same dry run on 4 CPU ranks, but v2_main's, whose init is
+     drawn on the card. (c) python -m
+     dlrm_tpu_torch.scripts.mlperf_proxy_run on 24 generated days of 800
+     rows: v1 (fused step) stops on AUC 0.70 with a compliant log, checked
+     again here and through the checker's CLI; v2 (DCN, streamed bf16
+     tables, K2) stops on AUROC 0.70; v1 again on the CPU over the same
+     bins, its first printed loss within atol 1e-4 and its first AUC within
+     1e-3 of the card's, every printed loss and AUC of both printed. (d) the golden test's twin,
+     dlrm_tpu_torch/scripts/dlrm_tpu_test.sh: four configs on the card,
+     each log within 5e-6 of its golden. (e) the preprocessing twin,
+     process_criteo_1tb.sh, on 12c's raw days: bins and counts equal to
+     12c's byte for byte. (f) visualize.representations of 4,096 rows on
+     the card against the CPU from one checkpoint (rtol 1e-4 / atol 1e-5);
+     the plotting half is host-only and not run, which is printed. (g)
+     python -m dlrm_tpu_torch.scripts.launch --nproc <cards> -m
+     dlrm_tpu_torch.cli -- ... --sharded: exit code 0, its losses, both
+     fused kernels once per step on every rank. (b)'s CPU run is a
+     subprocess beside (a) and (b), (d) and (g) beside (c), (e) and (c)'s
+     CPU run beside (f). `python3 chip_smoke.py
+     --tools` builds and runs phase 12 alone; it prints no "ok" line.
 The last two lines are the kernels JSON (14 kernels: phase 7 adds
 coalesce_rows and row_scatter_add at the fused step's shape; their
 `launches` are phase 7a's, and `launches_by_path` gives 7a's, each
-phase-8 run's and each phase-10 run's (summed over its ranks), each read
-just after its own reset to 0; K2's gives phase 3's and each phase-9 run's,
-summed over its ranks) and {"ok": true, "device": ...}. The script prints
-its total seconds before them.
+phase-8 run's, each phase-10 run's (summed over its ranks) and phase 12's
+12b (summed over its legs and ranks), 12c and 12g, each read just after its
+own reset to 0; K2's gives phase 3's, each phase-9 run's, summed over its
+ranks, and 12b's and 12c's) and {"ok": true, "device": ...}. The script
+prints its total seconds before them.
 """
 
 from __future__ import annotations
@@ -4251,6 +4285,456 @@ def phase_serving(root):
     return res
 
 
+# ------------------------------------------------------------------ phase 12
+P12_FWD_ITERS = 20
+# 12c: the proxy at the in-suite size (tests/test_mlperf_proxy.py's)
+P12_PROXY = ["--days", "24", "--rows-per-day", "800", "--auc-threshold",
+             "0.70", "--auroc-target", "0.70"]
+# 12f: the checkpoint's model (dlrm_criteo_kaggle.sh's widths on 8 tables
+# of 100,000 rows) and 4 batches of 1,024
+P12_VIZ = ["--arch-sparse-feature-size=16",
+           "--arch-embedding-size=" + "-".join(["100000"] * 8),
+           "--arch-mlp-bot=13-512-256-64-16", "--arch-mlp-top=512-256-1",
+           "--num-batches=4", "--mini-batch-size=1024"]
+P12_VIZ_TOL = (1e-4, 1e-5)  # fp32 towers, card vs CPU (phase 11c's)
+# 12g: cli --sharded over the launcher's ranks, 8a's widths on tables of
+# 100,000 rows, 10 steps
+P12G_STEPS = 10
+P12G_ARGS = ["--arch-sparse-feature-size=64",
+             "--arch-embedding-size=" + "-".join(["100000"] * 8),
+             "--arch-mlp-bot=13-512-64", "--arch-mlp-top=1024-1024-1",
+             "--data-generation=random", "--mini-batch-size=2048",
+             f"--num-batches={P12G_STEPS}", "--print-freq=5", "--sharded"]
+P12_COUNTED = ("stream_update", "coalesce_rows", "row_scatter_add")
+# 12b: each leg's losses, card against the CPU: bf16 towers on all but the
+# trainer legs, whose roundings move where the fp32 sums' order differs
+# (12a's probabilities: 6.8e-05)
+P12B_TOL = 2e-3
+# the leg that cannot be held so: v2_main draws its init on the device it
+# runs on (a torch.Generator on the card gives other numbers than the CPU's);
+# its path is held against one card in phases 9b and 10c
+P12B_UNHELD = "v2_main.main --sharded"
+P12B_CPU = ("import json\n"
+            "from dlrm_tpu_torch import graft_entry\n"
+            "if __name__ == '__main__':\n"
+            "    res = graft_entry.dryrun_multichip(4, device='cpu')\n"
+            "    print('P12B_CPU ' + json.dumps(res['legs']))\n")
+# 12c: v1 on the card against v1 on the CPU (fp32, sgd): the first printed
+# loss (the mean of 80 steps) and the first evaluation's AUC
+P12C_LOSS_TOL, P12C_AUC_TOL = 1e-4, 1e-3
+P12C_CPU = ("import sys\n"
+            "from dlrm_tpu_torch.scripts import mlperf_proxy_run\n"
+            "if __name__ == '__main__':\n"
+            "    sys.exit(mlperf_proxy_run.main(sys.argv[1:], device='cpu'))\n")
+
+
+class P12Run:
+    """A subprocess of phase 12, started at once: cmd from the checkout's
+    root in a process group of its own, its output to a file, every
+    process of it run with DLRM_TORCH_LAUNCHES_TO. finish() waits for it;
+    kill() ends the whole group if it is still running."""
+
+    def __init__(self, tag, cmd):
+        from dlrm_tpu_torch.ops.stream_kernels import LAUNCHES_TO
+
+        self.tag = tag
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                  "MASTER_ADDR", "MASTER_PORT", "DLRM_NUM_PROCESSES"):
+            env.pop(k, None)
+        self.tmp = tempfile.mkdtemp(prefix="p12_run_")
+        self.counts = os.path.join(self.tmp, "launches")
+        os.mkdir(self.counts)
+        env[LAUNCHES_TO] = self.counts
+        self.out = open(os.path.join(self.tmp, "out"), "w+")
+        self.t0, self.t1 = time.perf_counter(), None
+        self.proc = subprocess.Popen(cmd, cwd=here, env=env, text=True,
+                                     stdout=self.out,
+                                     stderr=subprocess.STDOUT,
+                                     start_new_session=True)
+        # its own wall time, whenever finish() is called
+        threading.Thread(target=self._reap, daemon=True).start()
+
+    def _reap(self):
+        self.proc.wait()
+        self.t1 = time.perf_counter()
+
+    def finish(self, timeout):
+        """(its output, the launches its processes wrote at exit, summed,
+        wall s from its start); fails the phase on a non-zero exit or when
+        it is still running `timeout` s after its start."""
+        left = timeout - (time.perf_counter() - self.t0)
+        try:
+            self.proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise SmokeFailure(f"{self.tag}: still running after "
+                               f"{timeout} s")
+        self.proc.wait()
+        wall = (self.t1 or time.perf_counter()) - self.t0
+        self.out.seek(0)
+        out = self.out.read()
+        launches = dict.fromkeys(P12_COUNTED, 0)
+        for name in os.listdir(self.counts):
+            with open(os.path.join(self.counts, name)) as f:
+                for k, v in json.load(f).items():
+                    if k in launches:
+                        launches[k] += v
+        self.kill()
+        check(self.proc.returncode == 0, f"{self.tag}: exit code "
+              f"{self.proc.returncode}:\n{out[-3000:]}")
+        return out, launches, wall
+
+    def kill(self):
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, 9)
+            self.proc.wait()
+        self.out.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def p12a():
+    """12a: graft_entry.entry()'s flagship forward at full width on the
+    card (26 x 200,000 x 128 fp32 tables, batch 1,024, 8 hits a bag, bf16
+    compute): ms per forward (CUDA events over P12_FWD_ITERS), peak memory,
+    and the same params' forward on the CPU within P11_TOWER_ATOL (the bf16
+    tower's roundings can move by a step where the fp32 sums' order
+    differs)."""
+    from dlrm_tpu_torch import graft_entry
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fwd, (params, batch) = graft_entry.entry()
+    table = params["emb"]["stacked"]
+    check(tuple(table.shape) == (26 * 200_000, 128)
+          and table.dtype == torch.float32, f"phase 12a: table "
+          f"{tuple(table.shape)} {table.dtype}")
+    probs = fwd(params, batch)
+    ms = time_ms(lambda: fwd(params, batch), CUDA, P12_FWD_ITERS)
+    peak = torch.cuda.max_memory_allocated()
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_batch = Batch(*(None if t is None else t.cpu() for t in batch))
+    want = fwd(cpu_params, cpu_batch)
+    got = probs.float().cpu()
+    check(got.shape == (1024, 1) and bool(torch.isfinite(got).all()),
+          f"phase 12a: probabilities {tuple(got.shape)}")
+    err = float((got - want.float()).abs().max())
+    check(err <= P11_TOWER_ATOL, f"phase 12a: card vs CPU probabilities "
+          f"differ by {err:.3e}")
+    log(f"phase 12a: graft_entry.entry() at full width ({table.numel() * 4} "
+        f"B of fp32 tables): {ms:.3f} ms a forward of 1,024 (CUDA events, "
+        f"{P12_FWD_ITERS} forwards), peak {peak} B ({peak / 2**30:.2f} "
+        f"GiB); card vs CPU probabilities max abs {err:.3e} (held to "
+        f"{P11_TOWER_ATOL})")
+    del fwd, params, batch, cpu_params, probs
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak": peak, "cpu_err": err}
+
+
+def p12b_cpu_start():
+    """12b's reference: the same dry run on 4 gloo ranks on the CPU, a
+    subprocess started before 12a."""
+    return P12Run("phase 12b (CPU)", [sys.executable, "-c", P12B_CPU])
+
+
+def p12b(cpu_run):
+    """12b: graft_entry.dryrun_multichip(4): every leg one step on 4 ranks
+    (NCCL where there are 4 cards, else 4 ranks sharing the card over gloo,
+    staged), each leg's OK line; K2 launched on the streamed legs and the
+    fused kernels on the fused ones, on every rank; each leg's loss and
+    loss after its step within P12B_TOL of the CPU run's. Returns the
+    launches summed over the legs and ranks."""
+    from dlrm_tpu_torch import graft_entry
+
+    buf = Tee(sys.stdout)
+    with contextlib.redirect_stdout(buf):
+        res = graft_entry.dryrun_multichip(4)
+    lines = [ln for ln in buf.buf.getvalue().splitlines()
+             if ln.startswith("dryrun_multichip(4)")]
+    check(len(lines) == len(graft_entry.LEGS) == len(res["legs"]),
+          f"phase 12b: {len(lines)} leg lines")
+    out, _, cpu_wall = cpu_run.finish(300)
+    found = [ln for ln in out.splitlines() if ln.startswith("P12B_CPU ")]
+    check(len(found) == 1, f"phase 12b (CPU): {out[-2000:]}")
+    cpu = json.loads(found[0].split(" ", 1)[1])
+    check([leg[0] for leg in cpu] == [leg[0] for leg in res["legs"]],
+          f"phase 12b: the CPU's legs {[leg[0] for leg in cpu]}")
+    errs = []
+    for (name, *card), (_, *host) in zip(res["legs"], cpu):
+        if name == P12B_UNHELD:
+            continue
+        check([x is None for x in card] == [x is None for x in host],
+              f"phase 12b {name}: losses {card} on the card, {host} on "
+              "the CPU")
+        err = max(abs(a - b) for a, b in zip(card, host) if a is not None)
+        check(err <= P12B_TOL, f"phase 12b {name}: losses {card} on the "
+              f"card, {host} on the CPU (beyond {P12B_TOL})")
+        errs.append(err)
+    log(f"phase 12b: the legs' losses within {max(errs):.3e} of the CPU's "
+        f"(held to {P12B_TOL}; by leg "
+        f"{', '.join(f'{e:.1e}' for e in errs)}; the CPU run "
+        f"{cpu_wall:.1f} s); {P12B_UNHELD} not held to the CPU (its init "
+        "is drawn on the card)")
+    total = dict.fromkeys(P12_COUNTED, 0)
+    for name, counts in res["launches"].items():
+        stream = "stream" in name
+        if name.startswith("v2_main"):  # --embedding_impl auto: either
+            ran = counts["stream_update"] or counts["coalesce_rows"]
+        elif stream:
+            ran = counts["stream_update"]
+        else:
+            ran = counts["coalesce_rows"] and counts["row_scatter_add"]
+        check(ran, f"phase 12b {name}: launches {counts}")
+        for k in P12_COUNTED:
+            total[k] += counts[k]
+    log(f"phase 12b: {len(lines)} legs over 4 ranks ({res['backend']}"
+        f"{', staged through host memory' if res['staged'] else ''}, grid "
+        f"{res['grid'][0]} x {res['grid'][1]}); launches summed over the "
+        f"legs and ranks: {total}")
+    return total
+
+
+def p12c(root):
+    """12c: the MLPerf proxy (python -m dlrm_tpu_torch.scripts.
+    mlperf_proxy_run, its main on the card) with both phases on 24 days x
+    800 rows: v1 stops on its AUC threshold with a log the copy of the
+    compliance checker passes (inside run_v1), and the same log passes it
+    again here and through its CLI; v2 stops on its AUROC target. v1 runs
+    the fused step (coalesce_rows, row_scatter_add), v2 the stream path
+    (K2). Returns (the workdir, launches)."""
+    from dlrm_tpu_torch.utils.compliance import check_lines
+
+    work = os.path.join(root, "p12_proxy")
+    out, launches, wall = P12Run(
+        "phase 12c", [sys.executable, "-m",
+                      "dlrm_tpu_torch.scripts.mlperf_proxy_run",
+                      "--workdir", work, "--phase", "both"] + P12_PROXY
+    ).finish(600)
+    ok = [ln for ln in out.splitlines() if ln.startswith("[proxy] v")
+          and " OK" in ln]
+    check(len(ok) == 2, f"phase 12c: {out[-2000:]}")
+    check(not check_lines(out.splitlines()), "phase 12c: the log has "
+          "violations")
+    log_path = os.path.join(root, "p12_proxy_v1.log")
+    with open(log_path, "w") as f:
+        f.write(out)
+    verdict = subprocess.run(
+        [sys.executable, "-m", "dlrm_tpu_torch.utils.compliance", log_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=120)
+    check(verdict.returncode == 0 and verdict.stdout.strip() == "compliant",
+          f"phase 12c: the checker's CLI said {verdict.stdout!r}")
+    check(launches["coalesce_rows"] and launches["row_scatter_add"]
+          and launches["stream_update"], f"phase 12c: launches {launches}")
+    log(f"phase 12c: {ok[0]}; {ok[1]}; the log compliant again here and "
+        f"through `python -m dlrm_tpu_torch.utils.compliance`; launches "
+        f"{launches}; {wall:.1f} s")
+    return work, launches, out
+
+
+def p12c_cpu_start(work):
+    """12c's reference: v1 on the CPU over 12c's bins (nothing to parse:
+    the workdir holds them)."""
+    return P12Run("phase 12c (CPU)", [sys.executable, "-c", P12C_CPU,
+                                      "--workdir", work, "--phase", "v1"]
+                  + P12_PROXY)
+
+
+def _v1_trace(out):
+    """(the printed losses, the evaluations' AUCs) of a v1 proxy run's
+    output, up to its OK line."""
+    out = out.split("[proxy] v1 OK", 1)[0]
+    losses = [float(x) for x in re.findall(
+        r"^Finished training it .* loss (\S+)$", out, re.M)]
+    aucs = [float(x) for x in re.findall(
+        r'"key": "eval_accuracy", "value": ([^,]+),', out)]
+    return losses, aucs
+
+
+def p12c_cpu(run, card_out):
+    """v1 on the card against v1 on the CPU: the first printed loss within
+    P12C_LOSS_TOL, the first AUC within P12C_AUC_TOL; both runs' printed
+    losses and AUCs are logged, later ones unheld (lr 0.4 sgd: the fp32
+    sums' order moves later steps)."""
+    out, _, wall = run.finish(300)
+    card, host = _v1_trace(card_out), _v1_trace(out)
+    check(card[0] and card[1] and host[0] and host[1],
+          f"phase 12c (CPU): {out[-2000:]}")
+    dl, da = abs(card[0][0] - host[0][0]), abs(card[1][0] - host[1][0])
+    log(f"phase 12c: v1 card against CPU: losses {card[0]} / {host[0]}, "
+        f"AUCs {card[1]} / {host[1]}; the CPU run {wall:.1f} s")
+    check(dl <= P12C_LOSS_TOL and da <= P12C_AUC_TOL,
+          f"phase 12c: v1's first loss {dl:.3e} (held to {P12C_LOSS_TOL}) "
+          f"and first AUC {da:.3e} (held to {P12C_AUC_TOL}) from the CPU's")
+    log(f"phase 12c: v1's first loss within {dl:.3e} of the CPU's (held to "
+        f"{P12C_LOSS_TOL}), its first AUC within {da:.3e} (held to "
+        f"{P12C_AUC_TOL})")
+
+
+def p12d_start():
+    """12d: the golden test's twin (dlrm_tpu_torch/scripts/dlrm_tpu_test.sh)
+    as a subprocess: its four configs on the card, each log within 5e-6 of
+    its golden."""
+    return P12Run("phase 12d",
+                  ["bash", "dlrm_tpu_torch/scripts/dlrm_tpu_test.sh"])
+
+
+def p12d(run):
+    out, _, wall = run.finish(300)
+    passed = re.findall(r"^(tiny\d): PASSED$", out, re.M)
+    check(passed == ["tiny1", "tiny2", "tiny3", "tiny4"],
+          f"phase 12d: {out[-2000:]}")
+    log(f"phase 12d: dlrm_tpu_test.sh: {', '.join(passed)} PASSED (text "
+        f"equal, numbers within 5e-6); {wall:.1f} s")
+
+
+def p12e_start(root, work):
+    """12e: the preprocessing twin (process_criteo_1tb.sh) on 12c's raw
+    days into a fresh directory: its bins and counts equal the proxy's
+    byte for byte."""
+    return P12Run("phase 12e",
+                  ["bash", "dlrm_tpu_torch/scripts/process_criteo_1tb.sh",
+                   os.path.join(work, "raw"), os.path.join(root, "p12_1tb")])
+
+
+def p12e(run, root, work):
+    import filecmp
+
+    dest = os.path.join(root, "p12_1tb")
+    out, _, wall = run.finish(300)
+    names = ["train_data.bin", "test_data.bin", "val_data.bin",
+             "day_fea_count.npz"]
+    for name in names:
+        check(filecmp.cmp(os.path.join(dest, name),
+                          os.path.join(work, "proc", name), shallow=False),
+              f"phase 12e: {name} differs from the proxy's")
+    log(f"phase 12e: process_criteo_1tb.sh on 12c's 24 raw days: "
+        f"{', '.join(names)} equal to 12c's byte for byte; {wall:.1f} s")
+
+
+def p12f(root):
+    """12f: visualize.representations on the card against the CPU from one
+    checkpoint: the three stages within P12_VIZ_TOL. The projection,
+    clustering and plotting half runs on the host with scikit-learn and
+    matplotlib; this machine's lack of them is printed."""
+    import importlib.util
+
+    from dlrm_tpu_torch.tools import visualize
+    from dlrm_tpu_torch.train import checkpoint as ckpt
+
+    ck = os.path.join(root, "p12_viz_ckpt")
+    args = visualize.build_parser().parse_args(["--load-model", ck]
+                                               + P12_VIZ)
+    model = DLRMModel(visualize.config_from_args(args))
+    ckpt.save_checkpoint(ck, model.init_params(seed=12, device=CUDA),
+                         meta={"phase": "12f"})
+    stages = {}
+    for dev in (CUDA, torch.device("cpu")):
+        with contextlib.redirect_stdout(io.StringIO()):
+            m, params, data = visualize.load(args, dev)
+        stages[dev.type] = visualize.representations(m, params, data, dev,
+                                                     max_points=4096)
+        del params
+    (card, y), (host, y_cpu) = stages["cuda"], stages["cpu"]
+    check(np.array_equal(y, y_cpu) and len(y) == 4096,
+          f"phase 12f: labels {len(y)}")
+    rtol, atol = P12_VIZ_TOL
+    errs = {}
+    for stage in ("input", "interaction", "final"):
+        check(card[stage].shape == host[stage].shape,
+              f"phase 12f {stage}: {card[stage].shape} vs "
+              f"{host[stage].shape}")
+        errs[stage] = float(np.abs(card[stage] - host[stage]).max())
+        check(np.allclose(card[stage], host[stage], rtol=rtol, atol=atol),
+              f"phase 12f {stage}: card vs CPU max abs {errs[stage]:.3e}")
+    missing = [m for m in ("sklearn", "matplotlib")
+               if importlib.util.find_spec(m) is None]
+    log(f"phase 12f: visualize.representations of {len(y)} rows on the "
+        "card against the CPU from one checkpoint, within rtol "
+        f"{rtol} / atol {atol}: " + ", ".join(
+            f"{k} {tuple(card[k].shape)} max abs {v:.3e}"
+            for k, v in errs.items()))
+    log("phase 12f: the projection, clustering and plotting half of "
+        "visualize runs on the host (CPU only) and is not run here: "
+        + (f"{' and '.join(missing)} not installed on this machine"
+           if missing else "its packages are installed, but it times "
+           "nothing of the card"))
+
+
+def p12g_start():
+    """12g: python -m dlrm_tpu_torch.scripts.launch --nproc <cards> -m
+    dlrm_tpu_torch.cli -- ... --sharded: exit code 0, its losses, the fused
+    kernels once per step on every rank."""
+    return P12Run("phase 12g",
+                  [sys.executable, "-m", "dlrm_tpu_torch.scripts.launch",
+                   "--nproc", str(torch.cuda.device_count()), "-m",
+                   "dlrm_tpu_torch.cli", "--"] + P12G_ARGS)
+
+
+def p12g(run):
+    n = torch.cuda.device_count()
+    out, launches, wall = run.finish(300)
+    losses = [float(x) for x in re.findall(r"loss (\d+\.\d+)", out)]
+    check(len(losses) == P12G_STEPS // 5
+          and all(math.isfinite(x) for x in losses),
+          f"phase 12g: {out[-2000:]}")
+    want = P12G_STEPS * n
+    check(launches["coalesce_rows"] == launches["row_scatter_add"] == want,
+          f"phase 12g: launches {launches}, want {want} of each")
+    log(f"phase 12g: launch.py --nproc {n} -m dlrm_tpu_torch.cli --sharded "
+        f"exited 0: losses {losses}; launches {launches}; {wall:.1f} s")
+    return launches
+
+
+def phase_tools(root):
+    """Phase 12: the tools, scripts and entry points on the card.
+    12a and 12b run beside 12b's CPU reference; 12d and 12g beside 12c;
+    12e and 12c's CPU reference beside 12f (subprocesses: each line's
+    seconds are its own wall time). Returns
+    {path: launches} for the kernels line's launches_by_path."""
+    t_phase = time.perf_counter()
+    runs = []
+    try:
+        runs.append(p12b_cpu_start())
+        p12a()
+        log(f"phase 12a: {time.perf_counter() - t_phase:.1f} s")
+        by_path = {"12b": p12b(runs[0])}
+        log(f"phase 12b: {time.perf_counter() - t_phase:.1f} s")
+        runs += [p12d_start(), p12g_start()]
+        work, by_path["12c"], card_out = p12c(root)
+        runs += [p12e_start(root, work), p12c_cpu_start(work)]
+        p12f(root)
+        p12d(runs[1])
+        by_path["12g"] = p12g(runs[2])
+        p12e(runs[3], root, work)
+        p12c_cpu(runs[4], card_out)
+    finally:
+        for run in runs:
+            run.kill()
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def tools_only():
+    """`python3 chip_smoke.py --tools`: the build, then phase 12 alone; no
+    "ok" line is printed."""
+    t_start = time.perf_counter()
+    try:
+        phase_build()
+        root = os.path.dirname(os.path.abspath(__file__))
+        with tempfile.TemporaryDirectory(prefix=".smoke_data_",
+                                         dir=root) as tmp:
+            by_path = phase_tools(tmp)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(f"phase 12 launches by path: {json.dumps(by_path)}")
+    log(f"chip_smoke --tools: done in {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 def device_times():
     """`python3 chip_smoke.py --device-times`: the build, then only the
     launch path's host us (phase 2b), phase 5's split times (T2-T6 at
@@ -4280,6 +4764,8 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--device-times"]:
         return device_times()
+    if sys.argv[1:] == ["--tools"]:
+        return tools_only()
     t_start = time.perf_counter()
     try:
         phase_build()
@@ -4298,19 +4784,25 @@ def main() -> int:
             sharded = phase_sharded(tmp, data_v2)
             fused_sharded = phase_fused_sharded(tmp, data_v2)
             phase_serving(tmp)
+            tools = phase_tools(tmp)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # launches: phase 7a's; by path: 7a's, phase 8's and each phase-10
-    # run's (the sum over its ranks)
+    # launches: phase 7a's; by path: 7a's, phase 8's, each phase-10 run's
+    # (the sum over its ranks) and phase 12's (12b summed over its legs and
+    # ranks, 12c's proxy run, 12g's launcher ranks)
     for entry in fused:
         name = entry["name"].split(" ")[0]
         entry["launches_by_path"] = {
             "7a": entry["launches"], **{t: c[name] for t, c in v1.items()},
-            **{t: c[name] for t, c in fused_sharded.items()}}
-    # K2's launches: phase 3's; by path: 3's and each phase-9 run's (the
-    # sum over its ranks, every rank once per step)
-    k2["launches_by_path"] = {"3": k2["launches"], **sharded}
+            **{t: c[name] for t, c in fused_sharded.items()},
+            **{t: c[name] for t, c in tools.items()}}
+    # K2's launches: phase 3's; by path: 3's, each phase-9 run's (the sum
+    # over its ranks, every rank once per step) and phase 12's (12b, 12c)
+    k2["launches_by_path"] = {
+        "3": k2["launches"], **sharded,
+        **{t: c["stream_update"] for t, c in tools.items()
+           if c["stream_update"]}}
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     kernels = [new["window_grads"], k2, new["stream_rows"],

@@ -15,20 +15,20 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Iterator, Optional, Sequence
+from typing import TYPE_CHECKING, Iterator, Optional, Sequence
 
 import numpy as np
-import torch
 
 from dlrm_tpu_torch.config import DLRMConfig, TrainConfig
-from dlrm_tpu_torch.data.batch import Batch, StreamArrays
-from dlrm_tpu_torch.device import resolve_device
 from dlrm_tpu_torch.ops.stream_plan import (
     StreamWork,
     build_stream_work,
     flat_col0,
     touched_update_items,
 )
+
+if TYPE_CHECKING:
+    from dlrm_tpu_torch.data.batch import Batch
 
 
 @dataclass
@@ -65,7 +65,13 @@ class HostBatch:
         instead of padded [T, B, Hmax], so only real hits cross the bus.
         On CUDA every array goes through pinned host memory with a
         non_blocking copy on the current stream, so the host can build the
-        next batch while the device works."""
+        next batch while the device works. Only this method needs torch:
+        the day parsers' worker processes import this module without it."""
+        import torch
+
+        from dlrm_tpu_torch.data.batch import Batch, StreamArrays
+        from dlrm_tpu_torch.device import resolve_device
+
         dev = resolve_device(device)
         idx, wt = self.idx, self.wt
         if idx.ndim == 2 and flat_hots is None:

@@ -461,26 +461,40 @@ class DLRMModel:
         towers (quantize_mlps) run through ops/quantized.py with fp32
         activations, their last layer's fp32 output the logits."""
         cfg = self.cfg
-        dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
-                 else torch.float32)
-        mlp = (Q.apply_mlp_quantized if Q.is_quantized_mlp(params["bot"])
-               else apply_mlp)
-        with prof.scope(prof.BOT_FWD):
-            x = mlp(params["bot"], dense.to(dtype), cfg.sigmoid_bot)
-        with prof.scope(prof.INT_FWD):
-            z = self.interact(params, x, ly.to(x.dtype))
+        z = self.interaction_from_pooled(params, dense, ly)
         with prof.scope(prof.TOP_FWD):
-            top = params["top"]
-            if Q.is_quantized_mlp(top):
-                hidden = Q.apply_mlp_quantized(top[:-1], z, sigmoid_layer=-1)
-                logits = Q.quantized_linear(top[-1], hidden).float()
-            else:
-                hidden = apply_mlp(top[:-1], z, sigmoid_layer=-1)
-                logits = matmul_f32(hidden, top[-1]["w"], top[-1]["b"])
+            logits = self.logits_from_interaction(params, z)
         p = torch.sigmoid(logits)
         if 0.0 < cfg.loss_threshold < 1.0:
             p = torch.clamp(p, cfg.loss_threshold, 1.0 - cfg.loss_threshold)
         return p, logits
+
+    def interaction_from_pooled(self, params: Params, dense: torch.Tensor,
+                                ly: torch.Tensor) -> torch.Tensor:
+        """The dense tower and the interaction given pooled embeddings
+        [B, T, d] -> the top MLP's input z."""
+        dtype = (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
+                 else torch.float32)
+        mlp = (Q.apply_mlp_quantized if Q.is_quantized_mlp(params["bot"])
+               else apply_mlp)
+        with prof.scope(prof.BOT_FWD):
+            x = mlp(params["bot"], dense.to(dtype), self.cfg.sigmoid_bot)
+        with prof.scope(prof.INT_FWD):
+            return self.interact(params, x, ly.to(x.dtype))
+
+    def logits_from_interaction(self, params: Params,
+                                z: torch.Tensor) -> torch.Tensor:
+        """The top MLP on an interaction output z -> fp32 logits: every
+        layer but the last with its activation, the last linear (its fp32
+        product plus the bias). Shared by forward_from_pooled and
+        tools/visualize.py, which keeps z and so runs no second pass over
+        the bottom MLP; quantized towers included."""
+        top = params["top"]
+        if Q.is_quantized_mlp(top):
+            hidden = Q.apply_mlp_quantized(top[:-1], z, sigmoid_layer=-1)
+            return Q.quantized_linear(top[-1], hidden).float()
+        hidden = apply_mlp(top[:-1], z, sigmoid_layer=-1)
+        return matmul_f32(hidden, top[-1]["w"], top[-1]["b"])
 
     def grads_from_pooled(self, params: Params, batch: Batch,
                           pooled: torch.Tensor,

@@ -28,13 +28,17 @@ and scatter-adds) and what its design does about it.
 Beside each kernel, <name>_plain is the same contract in plain PyTorch. A
 wrapper uses it only for tensors that lie on the CPU (the CPU tests); for
 CUDA tensors it launches the kernel or raises, never falls back. LAUNCHES
-counts each kernel's launches.
+counts each kernel's launches; a process run with DLRM_TORCH_LAUNCHES_TO=<dir>
+writes them at exit to <dir>/launches_<pid>.json, so that the processes a
+launcher or a script starts report the kernels they ran.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
+import json
 import os
 import shutil
 from typing import Optional
@@ -52,6 +56,18 @@ from dlrm_tpu_torch.optim.optimizers import ADAGRAD_EPS
 
 LAUNCHES = {"window_grads": 0, "stream_update": 0, "stream_rows": 0,
             "window_pool": 0}
+
+LAUNCHES_TO = "DLRM_TORCH_LAUNCHES_TO"
+
+
+def _write_launches(out_dir: str) -> None:
+    with open(os.path.join(out_dir, f"launches_{os.getpid()}.json"),
+              "w") as f:
+        json.dump(LAUNCHES, f)
+
+
+if os.environ.get(LAUNCHES_TO):
+    atexit.register(_write_launches, os.environ[LAUNCHES_TO])
 
 _OPTIMIZERS = {"sgd": 0, "rwsadagrad": 1, "adagrad": 2}
 _U32 = 0xFFFFFFFF

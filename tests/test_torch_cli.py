@@ -32,6 +32,7 @@ from dlrm_tpu.models.dlrm import DLRMModel as JaxModel
 from dlrm_tpu_torch import cli as tcli
 from dlrm_tpu_torch.bridge import params_from_jax
 from dlrm_tpu_torch.models.dlrm import DLRMModel
+from dlrm_tpu_torch.scripts import golden_compare
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = {  # test_scripts/dlrm_tpu_test.sh
@@ -43,8 +44,7 @@ GOLDEN = {  # test_scripts/dlrm_tpu_test.sh
               "--round-targets=True"],
 }
 README_LOSSES = [0.025266, 0.180494, 0.083240]
-NUM = re.compile(r"-?\d+\.\d+(?:e[-+]?\d+)?|-?\d+")
-TOL = 5e-6
+TOL = golden_compare.TOL
 
 
 def _run(argv, main=None):
@@ -59,13 +59,11 @@ def _losses(out):
     return [float(x) for x in re.findall(r"loss (\d+\.\d+)", out)]
 
 
-def _assert_text_close(got, want, tol=TOL):
-    """The same text with every number within `tol`."""
-    assert NUM.sub("#", got) == NUM.sub("#", want)
-    a = [float(x) for x in NUM.findall(got)]
-    b = [float(x) for x in NUM.findall(want)]
-    assert len(a) == len(b)
-    np.testing.assert_allclose(a, b, rtol=0, atol=tol)
+def _assert_text_close(got, want):
+    """The same text with every number within TOL (the golden rule of
+    scripts/golden_compare.py)."""
+    diff = golden_compare.differences(got, want)
+    assert not diff, "\n".join(diff[:20])
 
 
 @pytest.mark.parametrize("name", sorted(GOLDEN))

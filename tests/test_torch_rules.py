@@ -5,10 +5,16 @@
   start-up, so sys.modules says nothing).
 * Entry points run on the card unless the caller passes device="cpu"; where
   there is no card they raise instead of falling back to the CPU.
+* The preprocess's day parsers, a process a day, import the Criteo data
+  modules without torch, whose start-up would cost each seconds.
 """
 
 import ast
+import os
 import pathlib
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +24,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "dlrm_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
 ]
+PORT_SHELL_SCRIPTS = sorted((ROOT / "dlrm_tpu_torch").rglob("*.sh"))
+# a module of the JAX package named in a shell script (dlrm_tpu.x, not
+# dlrm_tpu_torch.x)
+JAX_MODULE = re.compile(r"\bdlrm_tpu\.[A-Za-z_]")
 
 
 def _imported_modules(path):
@@ -48,9 +58,16 @@ def test_scan_covers_the_port():
                    "utils/tfevents", "utils/profiling",
                    "native/criteo_native", "ops/quantized", "tools/export",
                    "parallel/gspmd", "probes/infer_bench",
-                   "probes/serve_flagship"):
+                   "probes/serve_flagship", "utils/compliance",
+                   "tools/visualize", "scripts/mlperf_proxy_run",
+                   "scripts/launch", "scripts/golden_compare",
+                   "graft_entry"):
         assert f"dlrm_tpu_torch/{module}.py" in names
     assert "chip_smoke.py" in names
+    shells = {p.name for p in PORT_SHELL_SCRIPTS}
+    assert shells == {"dlrm_tpu_test.sh", "dlrm_criteo_kaggle.sh",
+                      "dlrm_criteo_terabyte.sh", "dlrm_tpu_benchmark.sh",
+                      "run_and_time.sh", "process_criteo_1tb.sh"}
 
 
 @pytest.mark.parametrize(
@@ -59,6 +76,20 @@ def test_scan_covers_the_port():
 def test_port_imports_neither_jax_nor_dlrm_tpu(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", PORT_SHELL_SCRIPTS, ids=lambda p: p.relative_to(ROOT).as_posix()
+)
+def test_port_shell_scripts_name_no_jax_module(path):
+    bad = JAX_MODULE.findall(path.read_text())
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_shell_scan_detects_a_jax_module():
+    assert JAX_MODULE.findall("python -m dlrm_tpu.cli\n"
+                              "python -m dlrm_tpu_torch.cli\n") == [
+        "dlrm_tpu.c"]
 
 
 def test_scan_detects_a_forbidden_import(tmp_path):
@@ -90,6 +121,9 @@ def test_default_device_entry_points_raise_without_cuda():
         stream_variants,
         t2_sweep,
     )
+    from dlrm_tpu_torch.graft_entry import dryrun_multichip, entry
+    from dlrm_tpu_torch.scripts import mlperf_proxy_run
+    from dlrm_tpu_torch.tools import visualize
     from dlrm_tpu_torch.train.harness import Trainer
     from dlrm_tpu_torch.train.pipeline import DevicePrefetcher
     from dlrm_tpu_torch.train.stream_step import (
@@ -129,6 +163,11 @@ def test_default_device_entry_points_raise_without_cuda():
         # quantized serving, before it draws a batch
         lambda: v1_main(["--mini-batch-size=2", "--data-size=2",
                          "--inference-only", "--quantize-emb-with-bit=4"]),
+        # the tools and entry points
+        entry,
+        lambda: dryrun_multichip(2),
+        lambda: visualize.representations(model, {}, [hb]),
+        lambda: mlperf_proxy_run.run_v1("unused", 0.5),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -137,3 +176,15 @@ def test_default_device_entry_points_raise_without_cuda():
     assert model.init_params(seed=0, device="cpu")["emb"]["stacked"].shape == (
         50, 8)
     assert hb.to_device("cpu").dense.device.type == "cpu"
+
+
+def test_day_parser_modules_import_without_torch():
+    code = ("import sys\n"
+            "import dlrm_tpu_torch.data.criteo\n"
+            "import dlrm_tpu_torch.data.criteo_stream\n"
+            "print('torch' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "False"
