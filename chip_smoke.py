@@ -30,16 +30,19 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      row with 2,048 hits whose run spans several items, three one-block
      tables whose last and first rows coincide across each segment boundary,
      and a skewed batch with one row of 20,480 hits (K2 timed on it and on
-     the plain batch). 45 cases.
+     the plain batch); on the full, touched-only and long-run lists also
+     with G_u in bf16 (the step's g_dtype). 72 cases.
   2b. K1, K3 and K4 against their plain versions, bit for bit, on the same
-     plan and the full item list: K1 with mm_dtype fp32 / bf16 and unit /
-     random weights, K3 with fp32 / bf16 tables and mm_dtype, K4 as K1 and
-     on its edge cases (30 % weight-0 slots, a budgeted table whose
-     weight-0 hits are dropped from U, leaving bags with no slot, bags
+     plan and the full item list, each with its intermediate (G_u, R_u) in
+     fp32 and in bf16: K1 with mm_dtype fp32 / bf16, unit / random weights
+     and an fp32 or bf16 dly, K3 with fp32 / bf16 tables and mm_dtype, K4
+     as K1 and on its edge cases (30 % weight-0 slots, a budgeted table
+     whose weight-0 hits are dropped from U, leaving bags with no slot, bags
      hitting one row twice), each K4 case called twice with the same bits;
      K3 also on a plan whose first block's 128-slot run makes its 256-slot
-     item overrun into the next block's run. Then the host's us to enqueue
-     a call of K1-K4 and of the parts of a launch (host_us).
+     item overrun into the next block's run; gather_grads at bf16 its fp32
+     result rounded once. 44 cases. Then the host's us to enqueue a call of
+     K1-K4 and of the parts of a launch (host_us).
   3. the gather path at full width: 26 tables x 200,000 rows, d = 128, the
      ragged v2 hot sizes (214 hits/sample), batch 16,384, MLPs 13-512-256-128
      and 479-1024-1024-512-256-1, dot interaction, BCE, bf16 compute, bf16
@@ -48,8 +51,10 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      grad_impl="gather". A fresh host batch per step (ragged_multihot_batch,
      the native builder, pinned H2D); 3 warm-up and 20 timed steps; K2's
      own time, its plain version's and its bound at this shape; one
-     full-width K2 step against its plain version, bit for bit; the eval
-     step on one batch.
+     full-width K2 step against its plain version, bit for bit; one step
+     with g_dtype=bf16 from the same state on the same batch as an fp32-G_u
+     step, bit for bit (dly is bf16 here and the weights 1); the eval step
+     on one batch.
   4. the kernel path at full width: the same model and batch with
      fwd_impl="stream" (K3 then K4) and grad_impl="onehot" (K1) on the full
      item list (so K2 runs on it too); 3 warm-up and 20 timed steps, each
@@ -59,7 +64,14 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      run's data, K2's on the full list, and the library
      yardsticks (K3 against one index_select of the slots' rows, K4
      against one index_add_, K3+K4 against one F.embedding_bag,
-     gather_grads beside K1).
+     gather_grads beside K1). Then the same 23 steps with g_dtype=bf16
+     (G_u and R_u in bf16) from the same start on the same batches, which
+     must give the fp32 set's losses and params bit for bit (mm_dtype is
+     bf16, so no rounding changes), its launches, profile and device span
+     beside the fp32 set's; the same full-width calls with bf16 G_u and
+     R_u against their plain versions, bit for bit, timed, and their bounds
+     at 2 B an intermediate element (each K1-K4 entry's g_bf16 record;
+     K2's on the full list, its fp32 figures beside them).
   5. the probes (dlrm_tpu_torch/probes/, the port of bench_scripts/'s
      Pallas probes P1-P6): each probe kernel against its plain version at a
      small size and at its probe's own size (row_gather, row_scatter_add,
@@ -169,7 +181,7 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      with rwsadagrad at lr 0.001 the
      losses within rtol 1e-5 and the tables' and dense params' differences
      reported (element-wise Adagrad turns a gradient's rounding into a
-     whole lr step); then 5 steps
+     whole lr step); then 3 steps
      with bf16 tables and stochastic rounding: finite losses, the same on
      every rank, K2 launched once per step on every rank and nothing else,
      each rank's span per step (CUDA events), synchronizing calls past the
@@ -189,7 +201,7 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      striped, with per-table owner bucketing): 3 fp32 SGD steps (lr 1.0)
      against the single-card fused step on the same batches (losses rtol
      1e-5, each rank's table rows rtol 1e-5 / atol 1e-6, dense params rtol
-     1e-4 / atol 1e-5), then 10 rwsadagrad steps with the bf16 tower
+     1e-4 / atol 1e-5), then 5 rwsadagrad steps with the bf16 tower
      (finite losses equal on every rank, both fused kernels once per step
      on every rank, twice with column-wise tables, spans, syncs,
      shard_batch's host ms, peak); the first calls of coalesce_rows and
@@ -272,8 +284,9 @@ coalesce_rows and row_scatter_add at the fused step's shape; their
 phase-8 run's, each phase-10 run's (summed over its ranks) and phase 12's
 12b (summed over its legs and ranks), 12c and 12g, each read just after its
 own reset to 0; K2's gives phase 3's, each phase-9 run's, summed over its
-ranks, and 12b's and 12c's) and {"ok": true, "device": ...}. The script
-prints its total seconds before them.
+ranks, and 12b's and 12c's; K1-K4 carry phase 4's g_bf16 record) and
+{"ok": true, "device": ...}. The script prints its total seconds before
+them.
 """
 
 from __future__ import annotations
@@ -531,41 +544,59 @@ def phase_k2_vs_plain():
     for lname, (pl, sw) in lists.items():
         dly, base32, accs = inputs[pl]
         wts = (sw.rows_u != -1).float()
-        g_u = gather_grads(dly, sw.vals_u, wts, sw.w2t)
-        args = (g_u, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u, 0.05)
-        for opt, acc0 in accs.items():
-            for tdt, sr in ((torch.float32, False), (torch.bfloat16, False),
-                            (torch.bfloat16, True)):
-                mm = torch.bfloat16 if tdt == torch.bfloat16 else torch.float32
-                kw = dict(mm_dtype=mm, stochastic_round=sr, seed=7)
-                t_k = base32.to(tdt).clone()
-                a_k = None if acc0 is None else acc0.clone()
-                stream_update(opt, pl, t_k, a_k, *args, **kw)
-                t_p = base32.to(tdt).clone()
-                a_p = None if acc0 is None else acc0.clone()
-                stream_update_plain(opt, pl, t_p, a_p, *args, **kw)
-                torch.cuda.synchronize()
-                name = f"{opt}/{str(tdt)[6:]}/sr={int(sr)}/{lname}"
-                compare_update(name, t_p, t_k, a_p, a_k)
-                changed = int((t_k != base32.to(tdt)).any(1).sum())
-                check(changed > 0, f"{name}: kernel changed no row")
-                cases.append(name)
-                kernel_tables[name] = t_k
-                if opt == "rwsadagrad" and sr and lname in ("full", "skewed"):
-                    t_t, a_t = t_k.clone(), a_k.clone()
-                    timed[lname] = time_ms(lambda: stream_update(
-                        opt, pl, t_t, a_t, *args, **kw), CUDA, 10)
-                log(f"  {name}: bit-identical, rows_changed {changed}")
+        g32 = gather_grads(dly, sw.vals_u, wts, sw.w2t)
+        # G_u in bf16 too (the step's g_dtype) on the full, touched-only
+        # and long-run lists
+        g_dtypes = ((torch.float32, torch.bfloat16)
+                    if lname in ("full", "touched", "long run")
+                    else (torch.float32,))
+        for gdt in g_dtypes:
+            g_u = gather_grads(dly, sw.vals_u, wts, sw.w2t, out_dtype=gdt)
+            check(torch.equal(g_u, g32.to(gdt)),
+                  f"{lname}: gather_grads({gdt}) is not its fp32 result "
+                  "rounded once")
+            args = (g_u, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u,
+                    0.05)
+            gtag = "/g=bf16" if gdt == torch.bfloat16 else ""
+            for opt, acc0 in accs.items():
+                for tdt, sr in ((torch.float32, False),
+                                (torch.bfloat16, False),
+                                (torch.bfloat16, True)):
+                    mm = (torch.bfloat16 if tdt == torch.bfloat16
+                          else torch.float32)
+                    kw = dict(mm_dtype=mm, stochastic_round=sr, seed=7)
+                    t_k = base32.to(tdt).clone()
+                    a_k = None if acc0 is None else acc0.clone()
+                    stream_update(opt, pl, t_k, a_k, *args, **kw)
+                    t_p = base32.to(tdt).clone()
+                    a_p = None if acc0 is None else acc0.clone()
+                    stream_update_plain(opt, pl, t_p, a_p, *args, **kw)
+                    torch.cuda.synchronize()
+                    name = f"{opt}/{str(tdt)[6:]}/sr={int(sr)}{gtag}/{lname}"
+                    compare_update(name, t_p, t_k, a_p, a_k)
+                    changed = int((t_k != base32.to(tdt)).any(1).sum())
+                    check(changed > 0, f"{name}: kernel changed no row")
+                    cases.append(name)
+                    kernel_tables[name] = t_k
+                    if (opt == "rwsadagrad" and sr
+                            and lname in ("full", "skewed")):
+                        t_t, a_t = t_k.clone(), a_k.clone()
+                        timed[lname + gtag] = time_ms(lambda: stream_update(
+                            opt, pl, t_t, a_t, *args, **kw), CUDA, 10)
+                    log(f"  {name}: bit-identical, rows_changed {changed}")
     for name in cases:  # the touched-only list gives the full list's bits
         if name.endswith("/full"):
             check(torch.equal(kernel_tables[name].view(torch.uint8),
                               kernel_tables[name[:-4] + "touched"].view(
                                   torch.uint8)),
                   f"{name[:-5]}: touched-only list differs from full")
-    log(f"phase 2: {len(cases)} K2 cases bit-identical to the plain version")
+    n_bf16 = sum("/g=bf16/" in c for c in cases)
+    log(f"phase 2: {len(cases)} K2 cases ({n_bf16} of them on a bf16 G_u) "
+        "bit-identical to the plain version")
     log(f"phase 2: K2 rwsadagrad/bf16/sr on the mid-size full list "
-        f"{timed['full']:.3f} ms; with one row of {hot_hits} hits (summed "
-        f"serially by one warp) {timed['skewed']:.3f} ms")
+        f"{timed['full']:.3f} ms (bf16 G_u {timed['full/g=bf16']:.3f} ms); "
+        f"with one row of {hot_hits} hits (summed serially by one warp) "
+        f"{timed['skewed']:.3f} ms")
 
 
 def overrun_items(plan, sw):
@@ -580,31 +611,34 @@ def overrun_items(plan, sw):
     return int((foreign.any(1) & (sw.item_block < plan.num_blocks)).sum())
 
 
-def expected_rows(plan, sw, table, mm):
+def expected_rows(plan, sw, table, mm, out=torch.float32):
     """R_u by its definition: table[padded_offsets[t] + rows_u] rounded to
-    mm at real slots, 0 at sentinels."""
+    mm, then to out, at real slots; 0 at sentinels."""
     rows = sw.rows_u.reshape(-1).long()
     off = torch.tensor(plan.padded_offsets, device=table.device)[
         sw.w2t.long().repeat_interleave(1024)]
     real = rows != SENTINEL_ROW
-    want = torch.zeros((plan.u_total, table.shape[1]), device=table.device)
-    want[real] = table[(off + rows)[real]].to(mm).float()
+    want = torch.zeros((plan.u_total, table.shape[1]), dtype=out,
+                       device=table.device)
+    want[real] = table[(off + rows)[real]].to(mm).to(out)
     return want
 
 
-def check_rows(name, plan, sw, table, mm):
+def check_rows(name, plan, sw, table, mm, out=torch.float32):
     """K3 kernel against its plain version and against expected_rows, both
-    bit for bit; every slot written."""
+    bit for bit; every slot written. out: R_u's dtype."""
     args = (plan, table, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u)
-    got = stream_rows(*args, mm_dtype=mm)
-    want = stream_rows_plain(*args, mm_dtype=mm)
+    got = stream_rows(*args, mm_dtype=mm, out_dtype=out)
+    want = stream_rows_plain(*args, mm_dtype=mm, out_dtype=out)
     torch.cuda.synchronize()
+    check(got.dtype == want.dtype == out, f"{name}: R_u is {got.dtype}")
     check(not bool(torch.isnan(want).any()), f"{name}: a slot left unwritten")
+    err = float((got.float() - want.float()).abs().nan_to_num(1e30).max())
     check(torch.equal(got, want), f"{name}: K3 differs from its plain version "
-          f"(max abs {float((got - want).abs().nan_to_num(1e30).max())})")
-    check(torch.equal(got, expected_rows(plan, sw, table, mm)),
+          f"(max abs {err})")
+    check(torch.equal(got, expected_rows(plan, sw, table, mm, out)),
           f"{name}: K3 rows differ from table[padded_offsets[t] + rows_u]")
-    return got, float((got - want).abs().max())
+    return got, err
 
 
 def check_pool(name, args, mm):
@@ -668,50 +702,71 @@ def phase_new_kernels_vs_plain():
         f"{overrun_items(plan, sw)} of them overrun into the next block's run")
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    # fp32 cotangent as autograd gives it: [B, T, d], passed transposed
+    # fp32 cotangent as autograd gives it: [B, T, d], passed transposed;
+    # the bf16 tower's bf16 one beside it for the bf16 G_u cases
     dly = torch.randn((MID_B, len(MID_TABLES), d), generator=gen,
                       device=dev).transpose(0, 1)
-    n = 0
-    for mm in (torch.float32, torch.bfloat16):
+    bf16 = torch.bfloat16
+    n = n_bf16 = 0
+    for mm in (torch.float32, bf16):
         for wname, w in wts.items():
-            args = (dly, sw.vals_u, w, sw.w2t)
-            got = window_grads(*args, mm_dtype=mm)
-            want = window_grads_plain(*args, mm_dtype=mm)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"K1 mm={mm} weights={wname}: differs from its plain version")
-            n += 1
+            for dl, out in ((dly, torch.float32), (dly, bf16),
+                            (dly.to(bf16), bf16)):
+                args = (dl, sw.vals_u, w, sw.w2t)
+                got = window_grads(*args, mm_dtype=mm, out_dtype=out)
+                want = window_grads_plain(*args, mm_dtype=mm, out_dtype=out)
+                torch.cuda.synchronize()
+                check(got.dtype == out and torch.equal(got, want),
+                      f"K1 mm={mm} weights={wname} dly={dl.dtype} "
+                      f"out={out}: differs from its plain version")
+                n += 1
+                n_bf16 += out == bf16
+    # gather_grads (ATen, K1's alternative) at bf16: its fp32 result
+    # rounded once
+    for dl in (dly, dly.to(bf16)):
+        args = (dl, sw.vals_u, wts["random"], sw.w2t)
+        check(torch.equal(gather_grads(*args, out_dtype=bf16),
+                          gather_grads(*args).to(bf16)),
+              f"gather_grads dly={dl.dtype}: bf16 G_u is not its fp32 G_u "
+              "rounded once")
     table32 = torch.randn((plan.padded_rows, d), generator=gen,
                           device=dev) * 0.05
-    r_u = None
-    for tdt in (torch.float32, torch.bfloat16):
-        for mm in (torch.float32, torch.bfloat16):
-            got, _ = check_rows(f"K3 table={tdt} mm={mm}", plan, sw,
-                                table32.to(tdt), mm)
-            if tdt == torch.float32 and mm == torch.float32:
-                r_u = got
-            n += 1
-    for mm in (torch.float32, torch.bfloat16):
+    r_u = {}
+    for tdt in (torch.float32, bf16):
+        for mm in (torch.float32, bf16):
+            for out in (torch.float32, bf16):
+                got, _ = check_rows(f"K3 table={tdt} mm={mm} out={out}",
+                                    plan, sw, table32.to(tdt), mm, out)
+                if tdt == mm == torch.float32:
+                    r_u[out] = got
+                n += 1
+                n_bf16 += out == bf16
+    for mm in (torch.float32, bf16):
         for wname, w in wts.items():
-            check_pool(f"K4 mm={mm} weights={wname}",
-                       (plan, r_u, sw.vals_u, w, sw.w2t), mm)
-            n += 1
+            for out, r in r_u.items():
+                check_pool(f"K4 mm={mm} weights={wname} r_u={out}",
+                           (plan, r, sw.vals_u, w, sw.w2t), mm)
+                n += 1
+                n_bf16 += out == bf16
     for cname, (cplan, csw) in pool_cases(rng).items():
-        c_r = stream_rows(cplan, table32, csw.rows_u, csw.item_block,
-                          csw.item_row0, csw.item_u)
-        for mm in (torch.float32, torch.bfloat16):
-            got, _ = check_pool(f"K4 {cname} mm={mm}",
-                                (cplan, c_r, csw.vals_u, csw.wts_u, csw.w2t),
-                                mm)
-            n += 1
-        if cname == "budgeted":  # table 1's bags whose every hit was dropped
-            dropped = csw.wts_u.new_ones(MID_B, dtype=torch.bool)
-            kept = csw.vals_u.reshape(-1)[cplan.u_base[1]:cplan.u_base[2]]
-            dropped[kept[csw.wts_u.reshape(-1)[
-                cplan.u_base[1]:cplan.u_base[2]] != 0].long()] = False
-            check(int(dropped.sum()) > 0, "budgeted case drops no bag")
-            check(not bool(got[1][dropped].view(torch.int32).any()),
-                  "K4: a bag with every hit dropped is not a +0 row")
+        for out in (torch.float32, bf16):
+            c_r = stream_rows(cplan, table32, csw.rows_u, csw.item_block,
+                              csw.item_row0, csw.item_u, out_dtype=out)
+            for mm in (torch.float32, bf16):
+                got, _ = check_pool(
+                    f"K4 {cname} mm={mm} r_u={out}",
+                    (cplan, c_r, csw.vals_u, csw.wts_u, csw.w2t), mm)
+                n += 1
+                n_bf16 += out == bf16
+            if cname == "budgeted":  # table 1's bags that lost every hit
+                dropped = csw.wts_u.new_ones(MID_B, dtype=torch.bool)
+                kept = csw.vals_u.reshape(-1)[
+                    cplan.u_base[1]:cplan.u_base[2]]
+                dropped[kept[csw.wts_u.reshape(-1)[
+                    cplan.u_base[1]:cplan.u_base[2]] != 0].long()] = False
+                check(int(dropped.sum()) > 0, "budgeted case drops no bag")
+                check(not bool(got[1][dropped].view(torch.int32).any()),
+                      "K4: a bag with every hit dropped is not a +0 row")
     # a block whose run is exactly 128 slots: its one 256-slot item reads
     # the next block's run too, which the item must not write
     oplan = make_stream_plan((512,), d, 128, 2, block_rows=128)
@@ -720,13 +775,17 @@ def phase_new_kernels_vs_plain():
                     None, np.zeros((128, 1), np.float32))
     osw = ohb.with_stream_work(oplan).to_device(dev).stream
     check(overrun_items(oplan, osw) > 0, "overrun plan has no overrunning item")
-    for tdt in (torch.float32, torch.bfloat16):
-        check_rows(f"K3 overrun table={tdt}", oplan, osw,
-                   torch.randn((oplan.padded_rows, d), generator=gen,
-                               device=dev).to(tdt), torch.float32)
-        n += 1
-    log(f"phase 2b: {n} cases bit-identical to the plain versions (K4 "
-        "called twice in each, with the same bits)")
+    for tdt in (torch.float32, bf16):
+        otable = torch.randn((oplan.padded_rows, d), generator=gen,
+                             device=dev).to(tdt)
+        for out in (torch.float32, bf16):
+            check_rows(f"K3 overrun table={tdt} out={out}", oplan, osw,
+                       otable, torch.float32, out)
+            n += 1
+            n_bf16 += out == bf16
+    log(f"phase 2b: {n} cases ({n_bf16} of them with a bf16 G_u or R_u) "
+        "bit-identical to the plain versions (K4 called twice in each, with "
+        "the same bits); gather_grads at bf16 its fp32 result rounded once")
     launch_path_host_us()
 
 
@@ -864,18 +923,47 @@ def full_width_setup(fwd_impl, grad_impl):
     params = cast_emb(pad_params(model.init_params(seed=0), model, plan),
                       torch.bfloat16)
     opt_state = init_stream_opt_state("rwsadagrad", params, plan)
-    step = make_stream_train_step(
+    return (cfg, model, plan, params, opt_state,
+            full_width_step(model, plan, fwd_impl, grad_impl))
+
+
+def full_width_step(model, plan, fwd_impl, grad_impl, g_dtype=torch.float32):
+    """The train step of phases 3 and 4: rwsadagrad, bf16 K1-K4 operands,
+    stochastic rounding, G_u and R_u in g_dtype."""
+    return make_stream_train_step(
         model, "rwsadagrad", plan, fwd_impl=fwd_impl, grad_impl=grad_impl,
-        mm_dtype=torch.bfloat16, stochastic_round=True,
+        mm_dtype=torch.bfloat16, g_dtype=g_dtype, stochastic_round=True,
     )
-    return cfg, model, plan, params, opt_state, step
+
+
+def clone_tree(tree):
+    return tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def same_bits(a, b):
+    """Leaf by leaf, bit for bit: (all equal, elements that differ, their
+    largest abs difference)."""
+    n, worst = 0, 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        if not isinstance(x, torch.Tensor):
+            n += int(x != y)
+            continue
+        ne = (x.reshape(-1).view(torch.uint8).view(-1, x.element_size())
+              != y.reshape(-1).view(torch.uint8).view(-1, y.element_size())
+              ).any(1)
+        n += int(ne.sum())
+        if ne.any():
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return n == 0, n, worst
 
 
 def run_steps(tag, step, params, opt_state, plan, cfg, touched):
     """WARMUP + STEPS train steps at full width, a fresh host batch per
-    step, built while the card works. Every launch count is set to 0 just
-    before and read just after. Returns the last batch (host and device)
-    and the launch counts."""
+    step, built while the card works (the same batches on every call).
+    Every launch count is set to 0 just before and read just after.
+    Returns the last batch (host and device), the launch counts, the losses
+    and the median device span of a timed step."""
     rng = np.random.default_rng(0)
     timing = {"read": 0.0, "build": 0.0, "h2d": 0.0}
     hb = host_batch(rng, plan, cfg, timing, touched)
@@ -936,7 +1024,8 @@ def run_steps(tag, step, params, opt_state, plan, cfg, touched):
     log(f"{tag}: synchronizing calls in one step (sync debug mode): "
         f"{len(syncs)} distinct" + "".join(f"\n    {m}" for m in syncs))
     profile_steps(tag, step, params, opt_state, batch)
-    return params, opt_state, hb, batch, launches
+    return (params, opt_state, hb, batch, launches, losses,
+            float(np.median(dev_ms)))
 
 
 def bound(nbytes, nops):
@@ -975,6 +1064,40 @@ def touched_rows(hb):
                for t, h in enumerate(V2_HOT_SIZES))
 
 
+def kernel_work(plan, sw, hb, g_bytes, d=128):
+    """{kernel: (bytes it must move once, fp32 operations)} of K1-K4 on one
+    full-width step's work, with G_u and R_u at g_bytes an element (4 fp32,
+    2 bf16): bf16 tables, fp32 dly, pooled and accumulator."""
+    n_slots = plan.u_total
+    n_hits = int((sw.rows_u != SENTINEL_ROW).sum())
+    touched = touched_rows(hb)
+    items = sw.item_block.numel()
+    windows = sw.w2t.numel()
+    pooled = len(plan.table_sizes) * BATCH * d * 4
+    return {
+        # G_u written; dly (fp32) read once; vals_u, wts_u, w2t read; one
+        # multiply per G element
+        "window_grads": (n_slots * d * g_bytes + pooled + n_slots * 8
+                         + windows * 4, n_slots * d),
+        # each real hit's G row, rows_u and the item arrays read, each
+        # touched row's bf16 table row and fp32 accumulator read and
+        # written; an add per hit element, and per touched element the
+        # rwsadagrad epilogue's square, row-sum add, lr product, divide and
+        # subtract
+        "stream_update": (n_hits * d * g_bytes + n_slots * 4 + items * 12
+                          + touched * (d * 2 * 2 + 4 * 2),
+                          n_hits * d + touched * d * 5),
+        # R_u written; each touched bf16 table row, rows_u and the items
+        # read; no arithmetic beyond the conversions
+        "stream_rows": (n_slots * d * g_bytes + touched * d * 2
+                        + n_slots * 4 + items * 12, 0),
+        # each hit's R row, vals_u, wts_u and w2t read; pooled written; a
+        # multiply and an add per hit element
+        "window_pool": (n_hits * d * g_bytes + n_slots * 8 + windows * 4
+                        + pooled, n_hits * d * 2),
+    }
+
+
 def phase_gather_path():
     cfg, model, plan, params, opt_state, step = full_width_setup(
         "gather", "gather")
@@ -982,7 +1105,7 @@ def phase_gather_path():
         f"plan padded_rows {plan.padded_rows}, u_total {plan.u_total}, "
         f"max_items {plan.max_items}, blocks {plan.num_blocks}; top MLP "
         f"{cfg.ln_top}")
-    params, opt_state, hb, batch, launches = run_steps(
+    params, opt_state, hb, batch, launches, _, _ = run_steps(
         "phase 3", step, params, opt_state, plan, cfg, touched=True)
     total = WARMUP + STEPS
     check(launches["stream_update"] == total,
@@ -1013,23 +1136,35 @@ def phase_gather_path():
                     warmup=0)
     plain_ms = time_ms(lambda: stream_update_plain(
         "rwsadagrad", plan, t_k, a_k, *args, **kw), CUDA, 3, warmup=0)
-    # bytes the function must move once: each real hit's G row (fp32),
-    # rows_u and the item arrays, and each touched row's bf16 table row and
-    # its fp32 accumulator, read and written
-    n_hits = int((sw.rows_u != -1).sum())
-    touched = touched_rows(hb)
-    nbytes = (n_hits * 128 * 4 + sw.rows_u.numel() * 4
-              + 3 * sw.item_block.numel() * 4
-              + touched * (128 * 2 * 2 + 4 * 2))
-    # fp32 operations: one add per hit element; per touched element the
-    # rwsadagrad epilogue's square, row-sum add, lr product, divide, subtract
-    nops = n_hits * 128 + touched * 128 * 5
-    log(f"phase 3: K2 at full width ({n_hits} hits, {touched} touched rows):")
+    nbytes, nops = kernel_work(plan, sw, hb, 4)["stream_update"]
+    log(f"phase 3: K2 at full width ({int((sw.rows_u != -1).sum())} hits, "
+        f"{touched_rows(hb)} touched rows):")
     k2 = kernel_entry(
         "stream_update", "dlrm_tpu_torch/csrc/stream_update.cu",
         "dlrm_tpu/ops/stream_kernels.py:438", launches["stream_update"],
         r["max_abs"], k2_ms, plain_ms, nbytes, nops, None)
     del t_k, a_k, g_u
+
+    # g_dtype=bf16: one step from the last state on the last batch beside an
+    # fp32-G_u step. dly is bf16 here (the gather forward of a bf16 table)
+    # and the weights are 1, so G_u is a bf16 value already (and K2 rounds
+    # each G row to bf16 for mm_dtype bf16 anyway): the same bits
+    outs = []
+    for gdt in (torch.float32, torch.bfloat16):
+        p, s = clone_tree(params), clone_tree(opt_state)
+        loss = full_width_step(model, plan, "gather", "gather", gdt)(
+            p, s, batch, LR)[2]
+        outs.append((float(loss), p, s))
+    torch.cuda.synchronize()
+    (l32, p32, s32), (l16, p16, s16) = outs
+    equal, n_diff, worst = same_bits((p16, s16), (p32, s32))
+    check(equal and l16 == l32,
+          f"phase 3: the g_dtype=bf16 step differs from the fp32-G_u step: "
+          f"{n_diff} elements, max abs {worst:.3e}; losses {l16!r} / {l32!r}")
+    log(f"phase 3: a g_dtype=bf16 step from the same state on the same batch "
+        f"as an fp32-G_u step: params, accumulator and loss ({l16:.6f}) "
+        "bit-identical")
+    del outs, p32, s32, p16, s16
 
     ev_step = make_stream_eval_step(model, plan)
     timing = {"read": 0.0, "build": 0.0, "h2d": 0.0}
@@ -1045,12 +1180,80 @@ def phase_gather_path():
     return k2
 
 
+def full_width_kernels(tag, plan, sw, emb, acc, k1_args, gdt):
+    """One full-width call of K1, K3, K4 (twice) and K2 (full item list, on
+    K1's G_u) against its plain version, bit for bit, with G_u and R_u in
+    gdt; then each one's ms (10 calls) and its plain version's (3).
+    Returns {kernel: (max abs err, ms, plain ms)} and K3's R_u."""
+    mm = torch.bfloat16
+    k1_kw = dict(mm_dtype=mm, out_dtype=gdt)
+    g_u = window_grads(*k1_args, **k1_kw)
+    g_p = window_grads_plain(*k1_args, **k1_kw)
+    torch.cuda.synchronize()
+    check(g_u.dtype == gdt and torch.equal(g_u, g_p),
+          f"{tag}: full-width K1 differs from its plain version")
+    err = {"window_grads": float((g_u.float() - g_p.float()).abs().max())}
+    del g_p
+    k3_args = (plan, emb, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u)
+    r_u, err["stream_rows"] = check_rows(f"{tag}: full-width K3", plan, sw,
+                                         emb, mm, gdt)
+    k4_args = (plan, r_u, sw.vals_u, k1_args[2], sw.w2t)
+    _, err["window_pool"] = check_pool(f"{tag}: full-width K4", k4_args, mm)
+    k2_args = (g_u, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u, LR)
+    k2_kw = dict(mm_dtype=mm, stochastic_round=True, seed=12)
+    t_k, a_k = emb.clone(), acc.clone()
+    t_p, a_p = emb.clone(), acc.clone()
+    stream_update("rwsadagrad", plan, t_k, a_k, *k2_args, **k2_kw)
+    stream_update_plain("rwsadagrad", plan, t_p, a_p, *k2_args, **k2_kw)
+    torch.cuda.synchronize()
+    err["stream_update"] = compare_update(
+        f"{tag}: full-width K2, full list", t_p, t_k, a_p, a_k)["max_abs"]
+    log(f"{tag}: full-width K1, K3, K4 and K2 (full item list) "
+        "bit-identical to their plain versions; two K4 calls give the same "
+        "bits")
+    calls = {
+        "window_grads": (lambda: window_grads(*k1_args, **k1_kw),
+                         lambda: window_grads_plain(*k1_args, **k1_kw)),
+        "stream_update": (
+            lambda: stream_update("rwsadagrad", plan, t_k, a_k, *k2_args,
+                                  **k2_kw),
+            lambda: stream_update_plain("rwsadagrad", plan, t_p, a_p,
+                                        *k2_args, **k2_kw)),
+        "stream_rows": (
+            lambda: stream_rows(*k3_args, mm_dtype=mm, out_dtype=gdt),
+            lambda: stream_rows_plain(*k3_args, mm_dtype=mm, out_dtype=gdt)),
+        "window_pool": (lambda: window_pool(*k4_args, mm_dtype=mm),
+                        lambda: window_pool_plain(*k4_args, mm_dtype=mm)),
+    }
+    return {k: (err[k], time_ms(kern, CUDA, 10, warmup=0),
+                time_ms(plain, CUDA, 3, warmup=0))
+            for k, (kern, plain) in calls.items()}, r_u
+
+
+def g_bf16_record(name, res, work, launches):
+    """A K1-K4 entry's record of its run with G_u and R_u in bf16."""
+    err, ms, plain_ms = res
+    nbytes, nops = work
+    bound_ms, bound_by = bound(nbytes, nops)
+    log(f"  {name} (G_u, R_u bf16): {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms by {bound_by} ({nbytes} B, {nops} fp32 "
+        f"ops); {bound_ms / ms:.1%} of the bound; launches {launches}; max "
+        f"abs err vs plain {err:.3e}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "launches": launches}
+
+
 def phase_kernel_path():
+    """Phase 4: the kernel path at full width, with G_u and R_u in fp32 and
+    then in bf16 (g_dtype). Returns K1's, K3's and K4's entries, each with
+    its g_bf16 record, and K2's g_bf16 record (on this path's full item
+    list, its fp32 figures beside it)."""
     cfg, model, plan, params, opt_state, step = full_width_setup(
         "stream", "onehot")
     t_, d = len(cfg.table_sizes), cfg.embedding_dim
     log("phase 4: fwd_impl=stream grad_impl=onehot, full item list")
-    params, opt_state, hb, batch, launches = run_steps(
+    start = clone_tree(params), clone_tree(opt_state)
+    params, opt_state, hb, batch, launches, losses, span = run_steps(
         "phase 4", step, params, opt_state, plan, cfg, touched=False)
     total = WARMUP + STEPS
     for k in KERNELS:
@@ -1059,6 +1262,7 @@ def phase_kernel_path():
 
     sw = batch.stream
     emb = params["emb"]["stacked"]
+    acc = opt_state["accum"]["emb"]["stacked"]
     wts = (sw.rows_u != SENTINEL_ROW).float()
     mm = torch.bfloat16
     gen = torch.Generator(device="cuda")
@@ -1068,49 +1272,12 @@ def phase_kernel_path():
                       device="cuda").transpose(0, 1)
     k1_args = (dly, sw.vals_u, wts, sw.w2t)
     k3_args = (plan, emb, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u)
+    res, r_u = full_width_kernels("phase 4", plan, sw, emb, acc, k1_args,
+                                  torch.float32)
+    log(f"phase 4: K2 on the full item list {res['stream_update'][1]:.3f} ms")
 
-    # one full-width call of each against its plain version
-    g_k = window_grads(*k1_args, mm_dtype=mm)
-    g_p = window_grads_plain(*k1_args, mm_dtype=mm)
-    torch.cuda.synchronize()
-    check(torch.equal(g_k, g_p), "full-width K1 differs from its plain version")
-    k1_err = float((g_k - g_p).abs().max())
-    del g_k, g_p
-    r_u, k3_err = check_rows("full-width K3", plan, sw, emb, mm)
-    k4_args = (plan, r_u, sw.vals_u, wts, sw.w2t)
-    _, k4_err = check_pool("full-width K4", k4_args, mm)
-    log("phase 4: full-width K1, K3 and K4 bit-identical to their plain "
-        "versions; two K4 calls give the same bits")
-
-    # K2 on this path's full item list: bits against the plain version, and
-    # its time beside phase 3's touched-only list
-    acc = opt_state["accum"]["emb"]["stacked"]
-    g_u = window_grads(*k1_args, mm_dtype=mm)
-    k2_args = (g_u, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u, LR)
-    kw = dict(mm_dtype=mm, stochastic_round=True, seed=12)
-    t_k, a_k = emb.clone(), acc.clone()
-    t_p, a_p = emb.clone(), acc.clone()
-    stream_update("rwsadagrad", plan, t_k, a_k, *k2_args, **kw)
-    stream_update_plain("rwsadagrad", plan, t_p, a_p, *k2_args, **kw)
-    torch.cuda.synchronize()
-    compare_update("full-width K2, full list", t_p, t_k, a_p, a_k)
-    del t_p, a_p
-    k2_full_ms = time_ms(lambda: stream_update(
-        "rwsadagrad", plan, t_k, a_k, *k2_args, **kw), CUDA, 10, warmup=0)
-    del t_k, a_k, g_u
-    log(f"phase 4: K2 on the full item list bit-identical to its plain "
-        f"version; {k2_full_ms:.3f} ms")
-
-    # times: each kernel, its plain version, the library yardsticks
-    k1_ms = time_ms(lambda: window_grads(*k1_args, mm_dtype=mm), CUDA, 10,
-                    warmup=0)
-    k1_plain = time_ms(lambda: window_grads_plain(*k1_args, mm_dtype=mm),
-                       CUDA, 3, warmup=0)
+    # the library yardsticks
     gg_ms = time_ms(lambda: gather_grads(*k1_args), CUDA, 10, warmup=0)
-    k3_ms = time_ms(lambda: stream_rows(*k3_args, mm_dtype=mm), CUDA, 10,
-                    warmup=0)
-    k3_plain = time_ms(lambda: stream_rows_plain(*k3_args, mm_dtype=mm),
-                       CUDA, 3, warmup=0)
     # K3's library yardstick: one index_select of every slot's global row.
     # It differs from K3 at the sentinel slots (row 0, not zeros) and in
     # its output type (the bf16 table's, not fp32).
@@ -1121,13 +1288,10 @@ def phase_kernel_path():
         0)
     k3_lib = time_ms(lambda: torch.index_select(emb, 0, slot_rows), CUDA,
                      10, warmup=0)
-    k4_ms = time_ms(lambda: window_pool(*k4_args, mm_dtype=mm), CUDA, 10,
-                    warmup=0)
-    k4_plain = time_ms(lambda: window_pool_plain(*k4_args, mm_dtype=mm),
-                       CUDA, 3, warmup=0)
     idx = (sw.w2t.long()[:, None, None] * BATCH + sw.vals_u.long()).reshape(-1)
     k4_lib = time_ms(lambda: torch.zeros((t_ * BATCH, d), device="cuda")
                      .index_add_(0, idx, r_u), CUDA, 10, warmup=0)
+    del r_u
     k34_ms = time_ms(lambda: window_pool(plan, stream_rows(
         *k3_args, mm_dtype=mm), sw.vals_u, wts, sw.w2t, mm_dtype=mm), CUDA,
         10, warmup=0)
@@ -1143,41 +1307,55 @@ def phase_kernel_path():
                     CUDA, 10, warmup=0)
     log(f"phase 4: K3+K4 {k34_ms:.3f} ms against one F.embedding_bag "
         f"{eb_ms:.3f} ms on the same batch; gather_grads {gg_ms:.3f} ms "
-        f"beside K1 {k1_ms:.3f} ms")
+        f"beside K1 {res['window_grads'][1]:.3f} ms")
 
-    n_slots = plan.u_total
-    n_hits = int((sw.rows_u != SENTINEL_ROW).sum())
-    touched = touched_rows(hb)
-    items = sw.item_block.numel()
-    log(f"phase 4: kernels at full width ({n_slots} slots, {n_hits} hits, "
-        f"{touched} touched rows, {items} items):")
+    work32 = kernel_work(plan, sw, hb, 4)
+    log(f"phase 4: kernels at full width ({plan.u_total} slots, "
+        f"{int((sw.rows_u != SENTINEL_ROW).sum())} hits, {touched_rows(hb)} "
+        f"touched rows, {sw.item_block.numel()} items):")
+    sources = {"window_grads": ("window_grads.cu", 96, None),
+               "stream_rows": ("stream_rows.cu", 613, k3_lib),
+               "window_pool": ("window_pool.cu", 679, k4_lib)}
     entries = {
-        # G_u written; dly (fp32) read once; vals_u, wts_u, w2t read;
-        # one multiply per G element
-        "window_grads": kernel_entry(
-            "window_grads", "dlrm_tpu_torch/csrc/window_grads.cu",
-            "dlrm_tpu/ops/stream_kernels.py:96", launches["window_grads"],
-            k1_err, k1_ms, k1_plain,
-            n_slots * d * 4 + t_ * BATCH * d * 4 + n_slots * 8
-            + sw.w2t.numel() * 4, n_slots * d, None),
-        # R_u written; each touched bf16 table row, rows_u and the items
-        # read; no arithmetic beyond the bf16 -> fp32 conversion
-        "stream_rows": kernel_entry(
-            "stream_rows", "dlrm_tpu_torch/csrc/stream_rows.cu",
-            "dlrm_tpu/ops/stream_kernels.py:613", launches["stream_rows"],
-            k3_err, k3_ms, k3_plain,
-            n_slots * d * 4 + touched * d * 2 + n_slots * 4 + items * 12,
-            0, k3_lib),
-        # each hit's R row, vals_u, wts_u and w2t read; pooled written;
-        # a multiply and an add per hit element
-        "window_pool": kernel_entry(
-            "window_pool", "dlrm_tpu_torch/csrc/window_pool.cu",
-            "dlrm_tpu/ops/stream_kernels.py:679", launches["window_pool"],
-            k4_err, k4_ms, k4_plain,
-            n_hits * d * 4 + n_slots * 8 + sw.w2t.numel() * 4
-            + t_ * BATCH * d * 4, n_hits * d * 2, k4_lib),
-    }
-    return entries
+        k: kernel_entry(k, f"dlrm_tpu_torch/csrc/{src}",
+                        f"dlrm_tpu/ops/stream_kernels.py:{line}",
+                        launches[k], *res[k], *work32[k], lib)
+        for k, (src, line, lib) in sources.items()}
+
+    # the same steps with g_dtype=bf16 from the same start on the same
+    # batches. mm_dtype is bf16, so K1's products (unit weights) and K3's
+    # rows are bf16 values already and K2 rounds each G row to bf16 anyway:
+    # the bits cannot change, only the bytes G_u and R_u take
+    step16 = full_width_step(model, plan, "stream", "onehot", torch.bfloat16)
+    p16, s16, _, _, launches16, losses16, span16 = run_steps(
+        "phase 4 g_dtype=bf16", step16, *start, plan, cfg, touched=False)
+    del start
+    for k in KERNELS:
+        check(launches16[k] == total,
+              f"phase 4 g_dtype=bf16: {k} launched {launches16[k]} times in "
+              f"{total} steps")
+    equal, n_diff, worst = same_bits((p16, s16), (params, opt_state))
+    check(equal and losses16 == losses,
+          f"phase 4: the g_dtype=bf16 steps part from the fp32-G_u steps: "
+          f"{n_diff} elements, max abs {worst:.3e}")
+    del p16, s16
+    log(f"phase 4: g_dtype=bf16: {total} steps from the same start give the "
+        f"fp32-G_u steps' losses and params bit for bit; device span per "
+        f"step median {span16:.2f} ms (fp32 G_u {span:.2f} ms)")
+    res16, _ = full_width_kernels("phase 4 g_dtype=bf16", plan, sw, emb, acc,
+                                  k1_args, torch.bfloat16)
+    work16 = kernel_work(plan, sw, hb, 2)
+    for k, e in entries.items():
+        e["g_bf16"] = g_bf16_record(k, res16[k], work16[k], launches16[k])
+    k2 = g_bf16_record("stream_update (full list)", res16["stream_update"],
+                       work16["stream_update"], launches16["stream_update"])
+    k2_32_bound, _ = bound(*work32["stream_update"])
+    k2.update(items="full list, phase 4", fp32_ms=res["stream_update"][1],
+              fp32_plain_ms=res["stream_update"][2],
+              fp32_bound_ms=k2_32_bound)
+    log(f"  stream_update (full list, fp32 G_u): {k2['fp32_ms']:.3f} ms, "
+        f"plain {k2['fp32_plain_ms']:.3f} ms, bound {k2_32_bound:.3f} ms")
+    return entries, k2
 
 
 # ------------------------------------------------------------- phase 5
@@ -2822,9 +3000,10 @@ def phase_v1_trainer(tmp):
 P9_FP32_STEPS = 3
 # 9b's depth: each train batch costs the host ~6.5 s of shared bucketing
 # (rw_bucket.bucket_rw_hits_shared over 26 x 100 columns a sample); 9a's
-# bf16 runs cut to 5 steps for the same reason, to leave phase 10 its time
+# bf16 runs cut to 3 steps for the same reason (and 10a's rwsadagrad runs
+# to 5), to keep the script well inside its time limit on a slow host
 P9B_LIMITS = {"train": 2, "val": 1, "test": 1}
-P9_BF16_STEPS = 5
+P9_BF16_STEPS = 3
 # the fp32 comparison's (rtol, atol): tables 1e-5 / 1e-6; dense params
 # the port's step tests' (their grads sum 16,384 rows in another order)
 P9_TOL = {"tables": (1e-5, 1e-6), "dense": (1e-4, 1e-5)}
@@ -2970,8 +3149,8 @@ def p9_step_rank(rank, world, staged, refs):
     """Phase 9a on one rank: for each plan, the fp32 step with each
     optimizer of P9_FP32 (3 steps from the single-card run's init and
     batches, its losses, tables and dense params then held to that run's,
-    `refs`) and the bf16 step with SR (10 steps: losses, K2 launches, spans,
-    synchronizing calls, shard_batch's host time, peak memory)."""
+    `refs`) and the bf16 step with SR (P9_BF16_STEPS: losses, K2 launches,
+    spans, synchronizing calls, shard_batch's host time, peak memory)."""
     from dlrm_tpu_torch.parallel.mesh import make_mesh
 
     dev = p9_rank_device(rank, staged)
@@ -2979,17 +3158,20 @@ def p9_step_rank(rank, world, staged, refs):
     out = {}
     for name in P9_PLANS:
         res = {}
+        pieces = None  # the plan's sharded batches, read by both fp32 runs
         for opt, (lr, _) in P9_FP32.items():
             ref_losses, tables, dense = refs[opt]
             sb = p9_butterfly(name, p9_model("float32"), mesh, dev, False)
+            if pieces is None:
+                pieces = [sb.shard_batch(p9_batch(i))
+                          for i in range(P9_FP32_STEPS)]
             params = sb.init_params(seed=0)
             st = sb.init_opt_state(opt, params)
             step = sb.make_train_step(opt, BATCH, params, st)
             losses = []
             with K2Hold(f"phase 9a {name} fp32 {opt} rank {rank} K2"):
-                for i in range(P9_FP32_STEPS):
-                    params, st, loss, _ = step(
-                        params, st, sb.shard_batch(p9_batch(i)), lr)
+                for b in pieces:
+                    params, st, loss, _ = step(params, st, b, lr)
                     losses.append(loss)
             log(f"phase 9a rank {rank}: {name} fp32 {opt} done")
             res[opt] = {
@@ -3000,6 +3182,7 @@ def p9_step_rank(rank, world, staged, refs):
             res["num_rw"] = sb.num_rw
             del params, st, step, sb
             torch.cuda.empty_cache()
+        del pieces
 
         sb = p9_butterfly(name, p9_model("bfloat16"), mesh, dev, True)
         params = sb.init_params(seed=0)
@@ -3285,7 +3468,7 @@ def phase_sharded(root, data_v2):
 # against the single card, 10b the data axis, 10c v2_main --sharded
 # --embedding_impl fused, 10d the v1 trainer's --sharded
 P10_SGD_STEPS = 3
-P10_RWS_STEPS = 10
+P10_RWS_STEPS = 5
 P10B_BATCH = 2048
 P10_PLANS = {
     "table-wise": {"strategy": "table_wise"},
@@ -3460,7 +3643,7 @@ def p10_step_rank(rank, world, staged, refs, data, b, plans, rws,
                   lr=None):
     """10a (10b: data 2 x model 2, batch b, no rwsadagrad run) on one rank:
     for each plan, 3 fp32 SGD steps (at lr, None: p10_lr(b)) compared with
-    the single card's run `refs`, then (rws) 10 rwsadagrad steps with the
+    the single card's run `refs`, then (rws) 5 rwsadagrad steps with the
     bf16 tower: losses, launches, each fused kernel's first calls held to
     its plain version, spans, synchronizing calls, shard_batch's host ms,
     peak memory."""
@@ -4772,7 +4955,7 @@ def main() -> int:
         phase_k2_vs_plain()
         phase_new_kernels_vs_plain()
         k2 = phase_gather_path()
-        new = phase_kernel_path()
+        new, k2["g_bf16"] = phase_kernel_path()
         probes = phase_probes()
         root = os.path.dirname(os.path.abspath(__file__))
         with tempfile.TemporaryDirectory(prefix=".smoke_data_",

@@ -7,17 +7,19 @@
 // list (every block's chunks, the hit-free blocks' sentinel chunks and the
 // cover items of the tail padding):
 //
-//   R_u[u, :] = mm(table[blk * block_rows + rows_u[u] - row0])  (fp32)
+//   R_u[u, :] = mm(table[blk * block_rows + rows_u[u] - row0])
 //               for the item (blk, row0, u0) whose block holds rows_u[u],
 //   R_u[u, :] = 0 for sentinel slots (rows_u[u] == -1),
 //
 // where mm() rounds to bf16 when mm_bf16 is set (the TPU kernel casts the
-// table block to mm_dtype before its one-hot matmul).
+// table block to mm_dtype before its one-hot matmul). R_u is fp32, or bf16
+// when out_bf16 is set (the JAX step's g_dtype): each row rounded once to
+// the nearest bf16, ties to even.
 //
-// What bounds it on this card: bytes. It writes every R_u row once (fp32)
-// and reads each slot's table row once; the TPU kernel streamed the whole
-// table block through VMEM and picked rows with a one-hot MXU matmul, which
-// a GPU replaces by a direct row read.
+// What bounds it on this card: bytes. It writes every R_u row once (fp32 or
+// bf16) and reads each slot's table row once; the TPU kernel streamed the
+// whole table block through VMEM and picked rows with a one-hot MXU matmul,
+// which a GPU replaces by a direct row read.
 //
 // What the design does about the TPU kernel's reliance on grid order. On the
 // TPU each item writes its whole 256-slot chunk, zeros included where a
@@ -50,12 +52,12 @@ using namespace ulayout;
 
 static_assert(kThreads == kChunk, "one thread loads one slot's row id");
 
-template <typename TW, bool MM_BF16>
+template <typename TW, typename TO, bool MM_BF16>
 __global__ void __launch_bounds__(kThreads)
     k3_kernel(const TW* __restrict__ table, const int* __restrict__ rows_u,
               const int* __restrict__ item_block,
               const int* __restrict__ item_row0,
-              const int* __restrict__ item_u, float* __restrict__ r_u,
+              const int* __restrict__ item_u, TO* __restrict__ r_u,
               int64_t u_total, int num_blocks, int block_rows, int d) {
   const int64_t it = blockIdx.x;
   const int blk = item_block[it];
@@ -74,39 +76,55 @@ __global__ void __launch_bounds__(kThreads)
   const int r_lane = (mine >= 0 && mine < u_total) ? rows_u[mine] : -2;
   for (int i = 0; i < 32; ++i) {
     const int r = __shfl_sync(kFull, r_lane, i);
-    float* dst = r_u + (base + i) * d;
+    TO* dst = r_u + (base + i) * d;
     if (r == kSentinel) {
       for (int c = lane * 4; c < d; c += 128) {
-        *reinterpret_cast<float4*>(dst + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+        store4(dst + c, make_float4(0.f, 0.f, 0.f, 0.f));
       }
     } else if (real && r >= 0 && r >= row0 && r - row0 < block_rows) {
       const TW* src = table + (int64_t(blk) * block_rows + (r - row0)) * d;
       for (int c = lane * 4; c < d; c += 128) {
-        *reinterpret_cast<float4*>(dst + c) =
-            mm_round4<MM_BF16>(load4(src + c));
+        store4(dst + c, mm_round4<MM_BF16>(load4(src + c)));
       }
     }
   }
 }
 
-template <typename TW>
+template <typename TW, typename TO>
 cudaError_t launch(const void* table, const int* rows_u,
                    const int* item_block, const int* item_row0,
-                   const int* item_u, float* r_u, int64_t m_items,
+                   const int* item_u, void* r_u, int64_t m_items,
                    int64_t u_total, int num_blocks, int block_rows, int d,
                    int mm_bf16, cudaStream_t st) {
   const TW* w = static_cast<const TW*>(table);
+  TO* r = static_cast<TO*>(r_u);
   const unsigned grid = unsigned(m_items);
   if (mm_bf16) {
-    k3_kernel<TW, true><<<grid, kThreads, 0, st>>>(
-        w, rows_u, item_block, item_row0, item_u, r_u, u_total, num_blocks,
+    k3_kernel<TW, TO, true><<<grid, kThreads, 0, st>>>(
+        w, rows_u, item_block, item_row0, item_u, r, u_total, num_blocks,
         block_rows, d);
   } else {
-    k3_kernel<TW, false><<<grid, kThreads, 0, st>>>(
-        w, rows_u, item_block, item_row0, item_u, r_u, u_total, num_blocks,
+    k3_kernel<TW, TO, false><<<grid, kThreads, 0, st>>>(
+        w, rows_u, item_block, item_row0, item_u, r, u_total, num_blocks,
         block_rows, d);
   }
   return cudaGetLastError();
+}
+
+template <typename TW>
+cudaError_t launch_out(int out_bf16, const void* table, const int* rows_u,
+                       const int* item_block, const int* item_row0,
+                       const int* item_u, void* r_u, int64_t m_items,
+                       int64_t u_total, int num_blocks, int block_rows, int d,
+                       int mm_bf16, cudaStream_t st) {
+  return out_bf16
+             ? launch<TW, __nv_bfloat16>(table, rows_u, item_block,
+                                         item_row0, item_u, r_u, m_items,
+                                         u_total, num_blocks, block_rows, d,
+                                         mm_bf16, st)
+             : launch<TW, float>(table, rows_u, item_block, item_row0,
+                                 item_u, r_u, m_items, u_total, num_blocks,
+                                 block_rows, d, mm_bf16, st);
 }
 
 }  // namespace
@@ -114,9 +132,9 @@ cudaError_t launch(const void* table, const int* rows_u,
 extern "C" int k3_stream_rows(int table_bf16, const void* table,
                               const int* rows_u, const int* item_block,
                               const int* item_row0, const int* item_u,
-                              float* r_u, int64_t m_items, int64_t u_total,
+                              void* r_u, int64_t m_items, int64_t u_total,
                               int num_blocks, int block_rows, int d,
-                              int mm_bf16, void* stream) {
+                              int mm_bf16, int out_bf16, void* stream) {
   if (d <= 0 || d % 4 != 0 || block_rows <= 0 || num_blocks < 0 ||
       m_items < 0 || m_items > 0x7fffffffLL || u_total < 0) {
     return int(cudaErrorInvalidValue);
@@ -125,11 +143,12 @@ extern "C" int k3_stream_rows(int table_bf16, const void* table,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       table_bf16
-          ? launch<__nv_bfloat16>(table, rows_u, item_block, item_row0,
-                                  item_u, r_u, m_items, u_total, num_blocks,
-                                  block_rows, d, mm_bf16, st)
-          : launch<float>(table, rows_u, item_block, item_row0, item_u, r_u,
-                          m_items, u_total, num_blocks, block_rows, d,
-                          mm_bf16, st);
+          ? launch_out<__nv_bfloat16>(out_bf16, table, rows_u, item_block,
+                                      item_row0, item_u, r_u, m_items,
+                                      u_total, num_blocks, block_rows, d,
+                                      mm_bf16, st)
+          : launch_out<float>(out_bf16, table, rows_u, item_block, item_row0,
+                              item_u, r_u, m_items, u_total, num_blocks,
+                              block_rows, d, mm_bf16, st);
   return int(e);
 }

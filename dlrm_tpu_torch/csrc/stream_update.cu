@@ -6,9 +6,11 @@
 // host-built U-layout inputs (dlrm_tpu_torch/ops/stream_plan.py):
 //
 //   for every table block b named by the work items:
-//     Gsum[r] = sum of G_u[u] (fp32) over the slots u of b's items whose
+//     Gsum[r] = sum of G_u[u] over the slots u of b's items whose
 //               table-local row rows_u[u] lies in b's row range (fp32
-//               sums; each G row rounded to bf16 first when mm_bf16 is set)
+//               sums; each G row rounded to bf16 first when mm_bf16 is set;
+//               G_u is fp32, or bf16 when g_bf16 is set: the JAX step's
+//               g_dtype)
 //     sgd        W[r] -= lr * Gsum[r]
 //     rwsadagrad acc[r] += sum_d(Gsum[r]^2) / d;
 //                W[r] -= lr * Gsum[r] / (sqrt(acc[r]) + eps)
@@ -17,10 +19,10 @@
 //   stochastic rounding into a bf16 table.
 //
 // What bounds it on this card: bytes. Per hit it reads one G_u row (512 B
-// in fp32 at d = 128); per touched table row it reads and writes the row
-// and its accumulator once. There is no matrix product: the TPU kernel's
-// one-hot MXU matmuls only emulated a gather/scatter-add. The least time is
-// those bytes over the memory rate.
+// in fp32 at d = 128, 256 B in bf16); per touched table row it reads and
+// writes the row and its accumulator once. There is no matrix product: the
+// TPU kernel's one-hot MXU matmuls only emulated a gather/scatter-add. The
+// least time is those bytes over the memory rate.
 //
 // What the design does about it. The TPU walked the items in order on one
 // core and carried Gsum [block_rows, d] in VMEM from item to item; a GPU has
@@ -43,11 +45,11 @@
 //     Every touched row is read and written by exactly one warp: no atomics,
 //     no shared memory, no Gsum buffer;
 //   * each lane owns 4 neighbouring columns (per 128): a G row is one 16-byte
-//     load per lane, up to 4 rows in flight before the adds; the sum is
-//     taken in slot order from zero, the plain version's order, so the
-//     kernel agrees with it to the bit. The table row (and for rwsadagrad
-//     acc[r], for adagrad the accumulator row) is loaded before the G rows,
-//     so its latency hides behind theirs;
+//     (fp32) or 8-byte (bf16) load per lane, up to 4 rows in flight before
+//     the adds; the sum is taken in slot order from zero, the plain
+//     version's order, so the kernel agrees with it to the bit. The table
+//     row (and for rwsadagrad acc[r], for adagrad the accumulator row) is
+//     loaded before the G rows, so its latency hides behind theirs;
 //   * the epilogue's arithmetic is that of the TPU kernel in IEEE single
 //     operations (__f*_rn, sqrtf); rwsadagrad's row sum of squares is a
 //     lane partial over the lane's columns in order, then an xor butterfly
@@ -66,8 +68,8 @@
 // row, column) (k2::hash32); dlrm_tpu_torch/ops/stream_kernels.py computes
 // the same hash in torch integer ops for the plain version.
 //
-// The G row type is a template parameter (fp32 today; a bf16 G_u needs only
-// another instantiation). C interface for ctypes: k2_stream_update returns
+// The G row type is a template parameter (fp32 or bf16: TW x TG x OPT x NV,
+// 36 instances). C interface for ctypes: k2_stream_update returns
 // cudaGetLastError().
 
 #include "k2_update.cuh"  // hash32
@@ -254,22 +256,22 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-template <typename TW, int OPT, int NV>
-cudaError_t launch(void* table, float* acc, const float* g_u,
+template <typename TW, typename TG, int OPT, int NV>
+cudaError_t launch(void* table, float* acc, const void* g_u,
                    const int* rows_u, const int* item_block,
                    const int* item_row0, const int* item_u, int64_t m_items,
                    int64_t u_total, int num_blocks, int block_rows, int d,
                    float lr, float eps, uint32_t seed_hash, int mm_bf16,
                    int sr, cudaStream_t st) {
-  k2_kernel<TW, float, OPT, NV><<<unsigned(m_items), kThreads, 0, st>>>(
-      static_cast<TW*>(table), acc, g_u, rows_u, item_block, item_row0,
-      item_u, u_total, num_blocks, block_rows, d, lr, eps, seed_hash,
-      mm_bf16, sr);
+  k2_kernel<TW, TG, OPT, NV><<<unsigned(m_items), kThreads, 0, st>>>(
+      static_cast<TW*>(table), acc, static_cast<const TG*>(g_u), rows_u,
+      item_block, item_row0, item_u, u_total, num_blocks, block_rows, d, lr,
+      eps, seed_hash, mm_bf16, sr);
   return cudaGetLastError();
 }
 
-template <typename TW, int OPT>
-cudaError_t launch_nv(int nv, void* table, float* acc, const float* g_u,
+template <typename TW, typename TG, int OPT>
+cudaError_t launch_nv(int nv, void* table, float* acc, const void* g_u,
                       const int* rows_u, const int* item_block,
                       const int* item_row0,
                       const int* item_u, int64_t m_items, int64_t u_total,
@@ -277,9 +279,9 @@ cudaError_t launch_nv(int nv, void* table, float* acc, const float* g_u,
                       float eps, uint32_t seed_hash, int mm_bf16, int sr,
                       cudaStream_t st) {
 #define K2_LAUNCH(NV)                                                        \
-  launch<TW, OPT, NV>(table, acc, g_u, rows_u, item_block, item_row0,        \
-                      item_u, m_items, u_total, num_blocks, block_rows, d,   \
-                      lr, eps, seed_hash, mm_bf16, sr, st)
+  launch<TW, TG, OPT, NV>(table, acc, g_u, rows_u, item_block, item_row0,    \
+                          item_u, m_items, u_total, num_blocks, block_rows,  \
+                          d, lr, eps, seed_hash, mm_bf16, sr, st)
   if (nv == 1) return K2_LAUNCH(1);
   if (nv == 2) return K2_LAUNCH(2);
   return K2_LAUNCH(4);
@@ -289,8 +291,9 @@ cudaError_t launch_nv(int nv, void* table, float* acc, const float* g_u,
 }  // namespace
 
 extern "C" int k2_stream_update(
-    int opt, int table_bf16, void* table, void* acc, const float* g_u,
-    const int* rows_u, const int* item_block, const int* item_row0, const int* item_u, int64_t m_items,
+    int opt, int table_bf16, int g_bf16, void* table, void* acc,
+    const void* g_u, const int* rows_u, const int* item_block,
+    const int* item_row0, const int* item_u, int64_t m_items,
     int64_t u_total, int num_blocks, int block_rows, int d, float lr,
     float eps, uint32_t seed, int mm_bf16, int sr, void* stream) {
   if (opt != kSgd && opt != kRowwiseAdagrad && opt != kAdagrad) {
@@ -306,20 +309,22 @@ extern "C" int k2_stream_update(
   const int nv = d <= 128 ? 1 : (d <= 256 ? 2 : 4);
   const uint32_t seed_hash = k2::hash32(seed);
   float* accf = static_cast<float*>(acc);
-#define K2_OPT(TW, OPT)                                                      \
-  launch_nv<TW, OPT>(nv, table, accf, g_u, rows_u, item_block,               \
-                     item_row0, item_u, m_items, u_total, num_blocks,        \
-                     block_rows, d, lr, eps, seed_hash, mm_bf16, sr, st)
+#define K2_OPT(TW, TG, OPT)                                                  \
+  launch_nv<TW, TG, OPT>(nv, table, accf, g_u, rows_u, item_block,           \
+                         item_row0, item_u, m_items, u_total, num_blocks,    \
+                         block_rows, d, lr, eps, seed_hash, mm_bf16, sr, st)
+#define K2_OPTS(TW, TG)                                                      \
+  (opt == kSgd ? K2_OPT(TW, TG, kSgd)                                        \
+   : opt == kRowwiseAdagrad ? K2_OPT(TW, TG, kRowwiseAdagrad)                \
+                            : K2_OPT(TW, TG, kAdagrad))
   cudaError_t e;
   if (table_bf16) {
-    e = opt == kSgd ? K2_OPT(__nv_bfloat16, kSgd)
-        : opt == kRowwiseAdagrad ? K2_OPT(__nv_bfloat16, kRowwiseAdagrad)
-                                 : K2_OPT(__nv_bfloat16, kAdagrad);
+    e = g_bf16 ? K2_OPTS(__nv_bfloat16, __nv_bfloat16)
+               : K2_OPTS(__nv_bfloat16, float);
   } else {
-    e = opt == kSgd ? K2_OPT(float, kSgd)
-        : opt == kRowwiseAdagrad ? K2_OPT(float, kRowwiseAdagrad)
-                                 : K2_OPT(float, kAdagrad);
+    e = g_bf16 ? K2_OPTS(float, __nv_bfloat16) : K2_OPTS(float, float);
   }
+#undef K2_OPTS
 #undef K2_OPT
   return int(e);
 }

@@ -1,6 +1,6 @@
-// Shared by the U-layout kernels K1, K3 and K4 (window_grads.cu,
-// stream_rows.cu, window_pool.cu): the layout's constants, 4-wide row
-// loads and the mm_dtype rounding.
+// Shared by the U-layout kernels K1-K4 (window_grads.cu, stream_update.cu,
+// stream_rows.cu, window_pool.cu): the layout's constants, 4-wide row loads
+// and stores, and the mm_dtype rounding.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,6 +28,20 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 hi =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Four neighbouring fp32 values into a row of G_u or R_u: one 16-byte
+// (fp32) store, or one 8-byte store of the values rounded to the nearest
+// bf16, ties to even (the JAX kernels' astype of their fp32 results).
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __float22bfloat162_rn(make_float2(v.x, v.y));
+  const __nv_bfloat162 hi = __float22bfloat162_rn(make_float2(v.z, v.w));
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                 *reinterpret_cast<const unsigned*>(&hi));
 }
 
 // The TPU kernels cast both operands of their one-hot matmuls to mm_dtype:

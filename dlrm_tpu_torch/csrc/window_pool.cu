@@ -9,16 +9,18 @@
 //                     vals_u[u] == b of mm(wts_u[u]) * mm(R_u[u, :])  (fp32)
 //
 // where mm() rounds to bf16 when mm_bf16 is set (the TPU kernel carries the
-// weight in a one-hot matrix of mm_dtype and casts R_u to mm_dtype). A bag
-// that no slot hits comes out as a zero row.
+// weight in a one-hot matrix of mm_dtype and casts R_u to mm_dtype). R_u is
+// fp32, or bf16 when r_bf16 is set (the JAX step's g_dtype); the sums and
+// pooled stay fp32. A bag that no slot hits comes out as a zero row.
 //
-// What bounds it on this card: bytes. It reads each hit's R row once and
-// writes each pooled row once (pooled is T * B * d fp32, 218 MB at
-// bench.py's width). The TPU kernel revolved a [B, d] output block per
-// table through VMEM and added 128 slots at a time with a one-hot MXU
-// matmul; at B = 16,384 that block is 8 MiB, which no GPU shared memory
-// holds, and within a table the slots are sorted by row, not by bag, so
-// consecutive slots scatter over the bags.
+// What bounds it on this card: bytes. It reads each hit's R row once (512 B
+// in fp32 at d = 128, 256 B in bf16) and writes each pooled row once
+// (pooled is T * B * d fp32, 218 MB at bench.py's width). The TPU kernel
+// revolved a [B, d] output block per table through VMEM and added 128
+// slots at a time with a one-hot MXU matmul; at B = 16,384 that block is
+// 8 MiB, which no GPU shared memory holds, and within a table the slots
+// are sorted by row, not by bag, so consecutive slots scatter over the
+// bags.
 //
 // What the design does about it: it turns the slot-major layout bag-major,
 // then pools one bag per warp, with no float atomics, in a fixed order:
@@ -39,9 +41,8 @@
 // and is never -0, so it is left out of the lists; only a non-finite R row
 // at such a slot (0 * inf) would have told.
 //
-// The R row type is a template parameter (fp32 today; a bf16 R_u needs only
-// another instantiation). C interface for ctypes: k4_window_pool returns
-// cudaGetLastError().
+// The R row type is a template parameter (fp32 or bf16). C interface for
+// ctypes: k4_window_pool returns cudaGetLastError().
 
 #include <climits>
 
@@ -238,13 +239,34 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool MM_BF16, int NV>
-void launch_pool(unsigned grid, cudaStream_t st, const float* r_u,
+template <typename TR, bool MM_BF16, int NV>
+void launch_pool(unsigned grid, cudaStream_t st, const void* r_u,
                  const float* wts_u, const int* loc, const int* tile_pre,
                  const int* list, int* sorted, float* pooled, int64_t bags,
                  int d) {
-  k4_pool<float, MM_BF16, NV><<<grid, kThreads, 0, st>>>(
-      r_u, wts_u, loc, tile_pre, list, sorted, pooled, bags, d);
+  k4_pool<TR, MM_BF16, NV><<<grid, kThreads, 0, st>>>(
+      static_cast<const TR*>(r_u), wts_u, loc, tile_pre, list, sorted, pooled,
+      bags, d);
+}
+
+template <typename TR>
+void launch_pools(int mm_bf16, int nv, unsigned grid, cudaStream_t st,
+                  const void* r_u, const float* wts_u, const int* loc,
+                  const int* tile_pre, const int* list, int* sorted,
+                  float* pooled, int64_t bags, int d) {
+#define K4_POOL(MM, NV)                                                      \
+  launch_pool<TR, MM, NV>(grid, st, r_u, wts_u, loc, tile_pre, list, sorted, \
+                          pooled, bags, d)
+  if (mm_bf16) {
+    if (nv == 1) K4_POOL(true, 1);
+    else if (nv == 2) K4_POOL(true, 2);
+    else K4_POOL(true, 4);
+  } else {
+    if (nv == 1) K4_POOL(false, 1);
+    else if (nv == 2) K4_POOL(false, 2);
+    else K4_POOL(false, 4);
+  }
+#undef K4_POOL
 }
 
 inline unsigned capped_grid(int64_t threads) {
@@ -257,12 +279,13 @@ inline unsigned capped_grid(int64_t threads) {
 // Scratch (int32, from the caller): cnt and loc [tables * batch + 1] each,
 // tile_sum [tiles = ceil((tables * batch + 1) / 2048)], list and sorted
 // [u_total] each.
-extern "C" int k4_window_pool(const float* r_u, const int* vals_u,
+extern "C" int k4_window_pool(const void* r_u, const int* vals_u,
                               const float* wts_u, const int* w2t,
                               float* pooled, int* cnt, int* loc,
                               int* tile_sum, int* list, int* sorted,
                               int64_t u_total, int tables, int batch, int d,
-                              int tiles, int mm_bf16, void* stream) {
+                              int tiles, int mm_bf16, int r_bf16,
+                              void* stream) {
   const int64_t bags = int64_t(tables) * batch;
   if (d <= 0 || d % 4 != 0 || d > 512 || batch <= 0 || tables <= 0 ||
       u_total < 0 || u_total > INT_MAX || bags + 1 > INT_MAX ||
@@ -280,18 +303,12 @@ extern "C" int k4_window_pool(const float* r_u, const int* vals_u,
       vals_u, wts_u, w2t, cnt, loc, tile_sum, list, u_total, batch);
   const unsigned grid = capped_grid(bags * 32);
   const int nv = d <= 128 ? 1 : (d <= 256 ? 2 : 4);
-#define K4_POOL(MM, NV)                                                      \
-  launch_pool<MM, NV>(grid, st, r_u, wts_u, loc, tile_sum, list, sorted,     \
-                      pooled, bags, d)
-  if (mm_bf16) {
-    if (nv == 1) K4_POOL(true, 1);
-    else if (nv == 2) K4_POOL(true, 2);
-    else K4_POOL(true, 4);
+  if (r_bf16) {
+    launch_pools<__nv_bfloat16>(mm_bf16, nv, grid, st, r_u, wts_u, loc,
+                                tile_sum, list, sorted, pooled, bags, d);
   } else {
-    if (nv == 1) K4_POOL(false, 1);
-    else if (nv == 2) K4_POOL(false, 2);
-    else K4_POOL(false, 4);
+    launch_pools<float>(mm_bf16, nv, grid, st, r_u, wts_u, loc, tile_sum,
+                        list, sorted, pooled, bags, d);
   }
-#undef K4_POOL
   return int(cudaGetLastError());
 }

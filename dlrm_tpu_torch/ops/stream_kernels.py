@@ -18,6 +18,10 @@ dlrm_tpu/ops/stream_kernels.py: gather_grads and the four Pallas kernels).
                         R_u rows in slot order, the second half.
   stream_embedding_fwd  K3 then K4.
 
+The intermediates G_u and R_u are fp32 or bf16 (the step's g_dtype):
+gather_grads, K1 and K3 take out_dtype and round their fp32 values once to
+it (nearest, ties to even); K2 and K4 read either and sum in fp32.
+
 Each kernel is hand-written CUDA C++ for sm_90a in csrc/<name>.cu, built at
 first use by nvcc into a library with a plain C interface (kernel_library)
 and called through ctypes. Each source's header says which TPU kernel it
@@ -78,15 +82,19 @@ def gather_grads(
     vals_u: torch.Tensor,  # [Uw, 8, 128] int32 bag index (0 at sentinels)
     wts_u: torch.Tensor,  # [Uw, 8, 128] f32 weight (0 at sentinels)
     w2t: torch.Tensor,  # [Uw] int32 window -> table
-) -> torch.Tensor:  # G_u [Uw*1024, d] float32
-    """G_u[u] = wts_u[u] * dly[w2t[u // 1024], vals_u[u]] in fp32. Sentinel
-    slots gather bag 0 of the window's table and are zeroed by the weight.
-    A bf16 dly times the fp32 weight promotes to fp32 inside the one
-    multiply, with no fp32 copy of the gathered rows."""
+    *,
+    out_dtype=torch.float32,  # float32 | bfloat16 (the step's g_dtype)
+) -> torch.Tensor:  # G_u [Uw*1024, d] out_dtype
+    """G_u[u] = wts_u[u] * dly[w2t[u // 1024], vals_u[u]] in fp32, then
+    rounded once to out_dtype. Sentinel slots gather bag 0 of the window's
+    table and are zeroed by the weight. A bf16 dly times the fp32 weight
+    promotes to fp32 inside the one multiply, with no fp32 copy of the
+    gathered rows."""
+    _check_mm(out_dtype=out_dtype)
     t, b, d = dly.shape
     idx = (w2t.long()[:, None, None] * b + vals_u).reshape(-1)
     g = dly.reshape(t * b, d).index_select(0, idx)
-    return torch.mul(g, wts_u.reshape(-1, 1).float())
+    return torch.mul(g, wts_u.reshape(-1, 1).float()).to(out_dtype)
 
 
 # ----------------------------------------------------- stochastic rounding
@@ -187,8 +195,7 @@ def stream_update_plain(
             & (r >= row0) & (r < row0 + br))
     grow = (blk * br + r - row0)[keep]
     g = g_u[slots[keep]]
-    if mm_dtype == torch.bfloat16:
-        g = g.to(torch.bfloat16).float()
+    g = _mm(g, mm_dtype)  # a bf16 G_u is widened: index_add_ takes one dtype
     rows, inv = torch.unique(grow, return_inverse=True)
     gs = torch.zeros((rows.numel(), d), dtype=torch.float32, device=dev)
     _add_in_rounds(gs, inv, g)
@@ -229,10 +236,10 @@ _ENTRY_POINTS = {
     "window_grads": ("window_grads", "k1_window_grads", [
         _I, _P, _I64, _I64,  # dly_bf16, dly, stride_t, stride_b
         _P, _P, _P, _P,  # vals_u, wts_u, w2t, g_u
-        _I64, _I, _I, _P,  # u_total, d, mm_bf16, stream
+        _I64, _I, _I, _I, _P,  # u_total, d, mm_bf16, out_bf16, stream
     ]),
     "stream_update": ("stream_update", "k2_stream_update", [
-        _I, _I,  # opt, table_bf16
+        _I, _I, _I,  # opt, table_bf16, g_bf16
         _P, _P, _P, _P, _P, _P, _P,  # table, acc, g_u, rows_u, item_*
         _I64, _I64,  # m_items, u_total
         _I, _I, _I,  # num_blocks, br, d
@@ -244,13 +251,13 @@ _ENTRY_POINTS = {
         _I, _P, _P,  # table_bf16, table, rows_u
         _P, _P, _P, _P,  # item_block, item_row0, item_u, r_u
         _I64, _I64, _I, _I, _I,  # m_items, u_total, num_blocks, br, d
-        _I, _P,  # mm_bf16, stream
+        _I, _I, _P,  # mm_bf16, out_bf16, stream
     ]),
     "window_pool": ("window_pool", "k4_window_pool", [
         _P, _P, _P, _P, _P,  # r_u, vals_u, wts_u, w2t, pooled
         _P, _P, _P, _P, _P,  # scratch: cnt, loc, tile_sum, list, sorted
         _I64, _I, _I, _I,  # u_total, tables, batch, d
-        _I, _I, _P,  # tiles, mm_bf16, stream
+        _I, _I, _I, _P,  # tiles, mm_bf16, r_bf16, stream
     ]),
 }
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -329,16 +336,16 @@ def _device(kernel: str, *tensors) -> torch.device:
     return dev
 
 
-def _check_mm(mm_dtype, out_dtype=torch.float32):
-    if mm_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"mm_dtype must be float32 or bfloat16, got {mm_dtype}")
-    if out_dtype != torch.float32:
-        # K2 and K4 read fp32 G_u / R_u; a bf16 intermediate (the JAX
-        # step's g_dtype) is not ported yet
-        raise TypeError(f"out_dtype must be float32, got {out_dtype}")
-
-
 _FP = (torch.float32, torch.bfloat16)
+
+
+def _check_mm(mm_dtype=torch.float32, out_dtype=torch.float32):
+    if mm_dtype not in _FP:
+        raise TypeError(f"mm_dtype must be float32 or bfloat16, got "
+                        f"{mm_dtype}")
+    if out_dtype not in _FP:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
 _I32 = (torch.int32,)
 
 
@@ -374,7 +381,7 @@ def stream_update(
     acc: Optional[torch.Tensor],  # packed [padded_rows/128, 128] f32
     #                               (rwsadagrad), [padded_rows, d] f32
     #                               (adagrad), None (sgd); in place
-    g_u: torch.Tensor,  # [U, d] f32 from gather_grads
+    g_u: torch.Tensor,  # [U, d] f32 | bf16 from gather_grads or K1
     rows_u: torch.Tensor,  # [Uw, 8, 128] int32
     item_block: torch.Tensor,  # [M] int32
     item_row0: torch.Tensor,  # [M] int32
@@ -406,7 +413,7 @@ def stream_update(
         _check("acc", acc, (torch.float32,), shape=tuple(table.shape))
     elif acc is not None:
         raise ValueError("sgd keeps no accumulator; pass acc=None")
-    _check("g_u", g_u, (torch.float32,), shape=(plan.u_total, d))
+    _check("g_u", g_u, fp, shape=(plan.u_total, d))
     _check("rows_u", rows_u, i32, numel=plan.u_total)
     m = item_block.numel()
     for name, t in (("item_block", item_block), ("item_row0", item_row0),
@@ -430,7 +437,8 @@ def stream_update(
     _launch(
         "stream_update", dev,
         _OPTIMIZERS[optimizer], int(table.dtype == torch.bfloat16),
-        table.data_ptr(), None if acc is None else acc.data_ptr(),
+        int(g_u.dtype == torch.bfloat16), table.data_ptr(),
+        None if acc is None else acc.data_ptr(),
         g_u.data_ptr(), rows_u.data_ptr(), item_block.data_ptr(),
         item_row0.data_ptr(), item_u.data_ptr(),
         m, plan.u_total, plan.num_blocks, plan.block_rows, d,
@@ -458,13 +466,13 @@ def window_grads(
     wts_u: torch.Tensor,  # [Uw, 8, 128] f32 weight (0 at sentinels)
     w2t: torch.Tensor,  # [Uw] int32 window -> table
     *,
-    out_dtype=torch.float32,  # float32 only (K2 reads fp32 G_u)
+    out_dtype=torch.float32,  # float32 | bfloat16 (the step's g_dtype)
     mm_dtype=torch.float32,  # bfloat16: round weight and dly to bf16 first
-) -> torch.Tensor:  # G_u [Uw*1024, d] float32
+) -> torch.Tensor:  # G_u [Uw*1024, d] out_dtype
     """K1: G_u[u] = mm(wts_u[u]) * mm(dly[w2t[u // 1024], vals_u[u]]) in
-    fp32. dly is read through its strides: the [B, T, d] cotangent's
-    transpose(0, 1) view needs no copy. No batch limit (the TPU's VMEM
-    guard does not apply)."""
+    fp32, rounded once to out_dtype (nearest, ties to even). dly is read
+    through its strides: the [B, T, d] cotangent's transpose(0, 1) view
+    needs no copy. No batch limit (the TPU's VMEM guard does not apply)."""
     _check_mm(mm_dtype, out_dtype)
     _check("dly", dly, _FP, contiguous=False)
     if dly.dim() != 3 or dly.stride(2) != 1:
@@ -480,11 +488,11 @@ def window_grads(
                                   out_dtype=out_dtype, mm_dtype=mm_dtype)
     d = dly.shape[2]
     _check_rows4("dly", dly)
-    g_u = torch.empty((uw * WINDOW, d), dtype=torch.float32, device=dev)
+    g_u = torch.empty((uw * WINDOW, d), dtype=out_dtype, device=dev)
     _launch("window_grads", dev, int(dly.dtype == torch.bfloat16),
             dly.data_ptr(), dly.stride(0), dly.stride(1), vals_u.data_ptr(),
             wts_u.data_ptr(), w2t.data_ptr(), g_u.data_ptr(), uw * WINDOW, d,
-            int(mm_dtype == torch.bfloat16))
+            int(mm_dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
     return g_u
 
 
@@ -531,11 +539,12 @@ def stream_rows(
     item_row0: torch.Tensor,  # [M] int32
     item_u: torch.Tensor,  # [M] int32
     *,
-    out_dtype=torch.float32,  # float32 only (K4 reads fp32 R_u)
+    out_dtype=torch.float32,  # float32 | bfloat16 (the step's g_dtype)
     mm_dtype=torch.float32,  # bfloat16: round each row to bf16
-) -> torch.Tensor:  # R_u [U, d] float32
+) -> torch.Tensor:  # R_u [U, d] out_dtype
     """K3: R_u[u] = mm(table[block * br + rows_u[u] - row0]) for the item
-    whose block holds the slot's row, 0 at sentinel slots. Every slot is
+    whose block holds the slot's row, 0 at sentinel slots; rounded once to
+    out_dtype (nearest, ties to even). Every slot is
     written only when the item list is the full cover list
     (HostBatch.with_stream_work without update_touched_only)."""
     _check_mm(mm_dtype, out_dtype)
@@ -549,12 +558,12 @@ def stream_rows(
                                  item_u, out_dtype=out_dtype,
                                  mm_dtype=mm_dtype)
     _check_rows4("table", table)
-    r_u = torch.empty((plan.u_total, d), dtype=torch.float32, device=dev)
+    r_u = torch.empty((plan.u_total, d), dtype=out_dtype, device=dev)
     _launch("stream_rows", dev, int(table.dtype == torch.bfloat16),
             table.data_ptr(), rows_u.data_ptr(), item_block.data_ptr(),
             item_row0.data_ptr(), item_u.data_ptr(), r_u.data_ptr(), m,
             plan.u_total, plan.num_blocks, plan.block_rows, d,
-            int(mm_dtype == torch.bfloat16))
+            int(mm_dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
     return r_u
 
 
@@ -582,7 +591,7 @@ def window_pool_plain(plan: StreamPlan, r_u, vals_u, wts_u, w2t, *,
 
 def window_pool(
     plan: StreamPlan,
-    r_u: torch.Tensor,  # [U, d] f32 from stream_rows
+    r_u: torch.Tensor,  # [U, d] f32 | bf16 from stream_rows
     vals_u: torch.Tensor,  # [Uw, 8, 128] int32
     wts_u: torch.Tensor,  # [Uw, 8, 128] f32
     w2t: torch.Tensor,  # [Uw] int32
@@ -594,9 +603,9 @@ def window_pool(
     version's bits, the same on every run. No batch limit (the TPU's VMEM
     guard does not apply)."""
     _check_mm(mm_dtype)
-    _check("r_u", r_u, (torch.float32,))
+    _check("r_u", r_u, _FP)
     d = r_u.shape[1]
-    _check("r_u", r_u, (torch.float32,), shape=(plan.u_total, d))
+    _check("r_u", r_u, _FP, shape=(plan.u_total, d))
     _check("vals_u", vals_u, _I32, numel=plan.u_total)
     _check("wts_u", wts_u, (torch.float32,), numel=plan.u_total)
     _check("w2t", w2t, _I32, shape=(plan.num_windows,))
@@ -621,7 +630,8 @@ def window_pool(
             wts_u.data_ptr(), w2t.data_ptr(), pooled.data_ptr(),
             cnt.data_ptr(), loc.data_ptr(), tile_sum.data_ptr(),
             lists.data_ptr(), ordered.data_ptr(), plan.u_total, t, b, d,
-            tiles, int(mm_dtype == torch.bfloat16))
+            tiles, int(mm_dtype == torch.bfloat16),
+            int(r_u.dtype == torch.bfloat16))
     return pooled
 
 
@@ -631,7 +641,7 @@ def stream_embedding_fwd(
     rows_u, vals_u, wts_u, w2t, item_block, item_row0, item_u,
     *,
     mm_dtype=torch.float32,
-    r_dtype=torch.float32,
+    r_dtype=torch.float32,  # R_u's dtype: float32 | bfloat16 (g_dtype)
 ) -> torch.Tensor:  # pooled [T, B, d] float32
     """The streamed forward: K3 (stream rows) then K4 (window pool)."""
     r_u = stream_rows(plan, table, rows_u, item_block, item_row0, item_u,

@@ -23,6 +23,8 @@ configurations from V1's to the train step's, one change per rung:
 
   sgd fp32                  V1's: fp32 table, fp32 G
   sgd fp32 mm bf16          each G row rounded to bf16 before the sums
+  sgd fp32 G_u bf16         the same values, G_u stored in bf16 (the step's
+                            g_dtype): half the G bytes
   sgd bf16 sr mm bf16       a bf16 table written with stochastic rounding
   rwsadagrad bf16 sr        the train step's: row-wise Adagrad's epilogue
                             and its fp32 accumulator
@@ -68,14 +70,16 @@ NAMES = {
     "V5": "V5 skeleton, whole tiles by bulk copy",
     "V6": "V6 sgd full, whole tiles by bulk copy",
 }
-# K2's ladder: rung -> (optimizer, table dtype, mm_dtype, stochastic round)
+# K2's ladder: rung -> (optimizer, table dtype, mm_dtype, stochastic round,
+# G_u dtype)
+F32, BF16 = torch.float32, torch.bfloat16
 K2_LADDER = {
-    "K2 sgd fp32": ("sgd", torch.float32, torch.float32, False),
-    "K2 sgd fp32 mm bf16": ("sgd", torch.float32, torch.bfloat16, False),
-    "K2 sgd bf16 sr mm bf16": ("sgd", torch.bfloat16, torch.bfloat16, True),
-    "K2 rwsadagrad bf16 sr": ("rwsadagrad", torch.bfloat16, torch.bfloat16,
-                              True),
-    "K2 rwsadagrad fp32": ("rwsadagrad", torch.float32, torch.float32, False),
+    "K2 sgd fp32": ("sgd", F32, F32, False, F32),
+    "K2 sgd fp32 mm bf16": ("sgd", F32, BF16, False, F32),
+    "K2 sgd fp32 G_u bf16": ("sgd", F32, BF16, False, BF16),
+    "K2 sgd bf16 sr mm bf16": ("sgd", BF16, BF16, True, F32),
+    "K2 rwsadagrad bf16 sr": ("rwsadagrad", BF16, BF16, True, F32),
+    "K2 rwsadagrad fp32": ("rwsadagrad", F32, F32, False, F32),
 }
 LIBRARY = "torch index_add_ (sgd on the hits)"
 TABLES = tuple([200_000] * 26)
@@ -137,12 +141,12 @@ def variant_bytes(variant, geo, d) -> int:
     return n
 
 
-def rung_bytes(optimizer, table_dtype, geo, d) -> int:
+def rung_bytes(optimizer, table_dtype, g_dtype, geo, d) -> int:
     """Bytes a rung of K2's ladder must move once: V1's, with the table
-    rows in table_dtype and, for rwsadagrad, each touched row's fp32
-    accumulator read and written."""
-    row = d * torch.tensor([], dtype=table_dtype).element_size()
-    return (geo["hits"] * d * 4 + 2 * geo["touched"] * row
+    rows in table_dtype, the hits' G rows in g_dtype and, for rwsadagrad,
+    each touched row's fp32 accumulator read and written."""
+    row = d * table_dtype.itemsize
+    return (geo["hits"] * d * g_dtype.itemsize + 2 * geo["touched"] * row
             + geo["slots"] * 4 + geo["items"] * 12
             + (2 * geo["touched"] * 4 if optimizer == "rwsadagrad" else 0))
 
@@ -197,14 +201,16 @@ def run_shape(tag, plan, work, dev, variants) -> dict:
         width=52)
     del g_hits, grow
     acc = torch.zeros((plan.acc_rows, 128), device=dev)
-    for name, (opt, tdt, mm, sr) in K2_LADDER.items():
+    g_u16 = g_u.to(BF16)
+    for name, (opt, tdt, mm, sr, gdt) in K2_LADDER.items():
         t = table.to(tdt)
+        g = g_u16 if gdt == BF16 else g_u
         res[name] = record(
             f"[{tag}] {name}",
             time_ms(lambda: stream_update(
-                opt, plan, t, acc if opt == "rwsadagrad" else None, g_u,
+                opt, plan, t, acc if opt == "rwsadagrad" else None, g,
                 *items, LR, mm_dtype=mm, stochastic_round=sr, seed=1),
-                dev, ITERS), dev, nbytes=rung_bytes(opt, tdt, geo, d),
+                dev, ITERS), dev, nbytes=rung_bytes(opt, tdt, gdt, geo, d),
             width=52)
         del t
     print(f"[{tag}] all variants and the library call hold their values",
@@ -219,7 +225,7 @@ def split(tag, res) -> None:
     ladder's rungs."""
     ms = {v: r["ms"] for v, r in res.items() if isinstance(r, dict)
           and "ms" in r}
-    s32, s32b, s16, r16, r32 = K2_LADDER
+    s32, s32b, g16, s16, r16, r32 = K2_LADDER
     parts = (
         ("revolve floor: read+write every visited tile (V4)", ("V4",), ()),
         ("bulk store instead of thread stores (V5 - V4)", ("V5",), ("V4",)),
@@ -228,6 +234,7 @@ def split(tag, res) -> None:
         ("whole-tile instead of hit-row writes (V2 - V1)", ("V2",), ("V1",)),
         ("bulk store with the sums (V6 - V2)", ("V6",), ("V2",)),
         ("G rounded to bf16 in the sums", (s32b,), (s32,)),
+        ("G_u stored bf16 (half the G bytes)", (g16,), (s32b,)),
         ("bf16 table with SR instead of fp32", (s16,), (s32b,)),
         ("rwsadagrad instead of sgd, bf16 table", (r16,), (s16,)),
         ("rwsadagrad instead of sgd, fp32 table", (r32,), (s32,)),

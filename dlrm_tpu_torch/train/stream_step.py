@@ -12,6 +12,8 @@ One train step:
   3. the dense params take the regular optimizer (optim/optimizers.py);
   4. the table takes the per-hit grads G_u (grad_impl="onehot": K1
      window_grads; "gather": gather_grads) and K2 stream_update.
+G_u and K3's rows R_u are held in g_dtype (fp32, or bf16: half the bytes,
+each element rounded once to the nearest bf16), as in the JAX step.
 
 Under weighted pooling (cfg.weighted_pooling, the per-row weights v_w in
 the padded row layout) the forward must be the gather, with v_w folded into
@@ -180,6 +182,7 @@ def make_stream_train_step(
     fwd_impl: str = "gather",  # gather (F.embedding_bag) | stream (K3+K4)
     grad_impl: str = "onehot",  # onehot (K1) | gather (gather_grads)
     mm_dtype=torch.float32,  # K1-K4: round operands to this dtype first
+    g_dtype=torch.float32,  # dtype of the G_u / R_u intermediates
     stochastic_round: bool = False,  # SR the bf16 table writes
     eps: float = None,  # Adagrad epsilon (None -> torch default 1e-10)
     device="cuda",
@@ -240,9 +243,10 @@ def make_stream_train_step(
             dly_t = dly.transpose(0, 1)  # [T, B, d] view, no copy
             if grad_impl == "onehot":
                 g_u = window_grads(dly_t, sw.vals_u, wts_u, sw.w2t,
-                                   mm_dtype=mm_dtype)
+                                   out_dtype=g_dtype, mm_dtype=mm_dtype)
             else:
-                g_u = gather_grads(dly_t, sw.vals_u, wts_u, sw.w2t)
+                g_u = gather_grads(dly_t, sw.vals_u, wts_u, sw.w2t,
+                                   out_dtype=g_dtype)
             stream_update(
                 optimizer, plan, emb,
                 None if accum is None else accum["emb"]["stacked"],
@@ -266,6 +270,7 @@ def make_stream_train_step(
             return stream_embedding_fwd(
                 plan, emb, sw.rows_u, sw.vals_u, wts_u, sw.w2t,
                 sw.item_block, sw.item_row0, sw.item_u, mm_dtype=mm_dtype,
+                r_dtype=g_dtype,
             ).transpose(0, 1)
         if weighted is None:
             return grouped_embedding_bag(emb, offsets, batch.idx, batch.wt,

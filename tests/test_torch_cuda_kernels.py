@@ -7,7 +7,8 @@ at larger shapes.
 
 K1-K4 compute the same products, sums and copies in the same order as their
 plain versions, so they must agree to the bit; K4 sums each bag in slot
-order, so two calls also give the same bits.
+order, so two calls also give the same bits. Each is held so with its
+intermediate (G_u, R_u) in fp32 and in bf16 (the step's g_dtype).
 
 The numpy builders of the run and pooling edge cases (_run_case,
 _pool_case) live here, free of JAX, and tests/test_torch_stream_kernels.py
@@ -142,8 +143,9 @@ def _update_both(optimizer, plan, base, acc, g_u, sw, tdt, sr):
                                             ("bfloat16", False),
                                             ("bfloat16", True)])
 @pytest.mark.parametrize("touched", [False, True], ids=["full", "touched"])
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
 def test_stream_update_kernel_matches_plain(dev, optimizer, table_dtype, sr,
-                                            touched):
+                                            touched, g_dtype):
     rng = np.random.default_rng(0)
     plan = make_stream_plan(TABLES, D, B, HOT, block_rows=1024)
     hb = ragged_multihot_batch(rng, 4, TABLES, HOT, B).with_stream_work(
@@ -152,7 +154,8 @@ def test_stream_update_kernel_matches_plain(dev, optimizer, table_dtype, sr,
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     dly = torch.randn((len(TABLES), B, D), generator=gen, device=dev)
-    g_u = tk.gather_grads(dly, sw.vals_u, sw.wts_u, sw.w2t)
+    g_u = tk.gather_grads(dly, sw.vals_u, sw.wts_u, sw.w2t,
+                          out_dtype=getattr(torch, g_dtype))
     tdt = getattr(torch, table_dtype)
     base = (torch.randn((plan.padded_rows, D), generator=gen, device=dev)
             * 0.05).to(tdt)
@@ -201,7 +204,9 @@ def _wts(sw, weights):
 @pytest.mark.parametrize("dly_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
 @pytest.mark.parametrize("weights", ["unit", "random"])
-def test_window_grads_kernel_matches_plain(dev, dly_dtype, mm, weights):
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+def test_window_grads_kernel_matches_plain(dev, dly_dtype, mm, weights,
+                                           g_dtype):
     plan, sw = _work(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -209,30 +214,35 @@ def test_window_grads_kernel_matches_plain(dev, dly_dtype, mm, weights):
     dly = torch.randn((B, len(TABLES), D), generator=gen, device=dev).to(
         getattr(torch, dly_dtype)).transpose(0, 1)
     args = (dly, sw.vals_u, _wts(sw, weights), sw.w2t)
+    kw = dict(mm_dtype=getattr(torch, mm), out_dtype=getattr(torch, g_dtype))
     launches = tk.LAUNCHES["window_grads"]
-    got = tk.window_grads(*args, mm_dtype=getattr(torch, mm))
-    want = tk.window_grads_plain(*args, mm_dtype=getattr(torch, mm))
+    got = tk.window_grads(*args, **kw)
+    want = tk.window_grads_plain(*args, **kw)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["window_grads"] == launches + 1
+    assert got.dtype == want.dtype == kw["out_dtype"]
     assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
-def test_stream_rows_kernel_matches_plain(dev, table_dtype, mm):
+@pytest.mark.parametrize("r_dtype", ["float32", "bfloat16"])
+def test_stream_rows_kernel_matches_plain(dev, table_dtype, mm, r_dtype):
     plan, sw = _work(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     table = torch.randn((plan.padded_rows, D), generator=gen,
                         device=dev).to(getattr(torch, table_dtype))
     args = (plan, table, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u)
+    kw = dict(mm_dtype=getattr(torch, mm), out_dtype=getattr(torch, r_dtype))
     launches = tk.LAUNCHES["stream_rows"]
-    got = tk.stream_rows(*args, mm_dtype=getattr(torch, mm))
-    want = tk.stream_rows_plain(*args, mm_dtype=getattr(torch, mm))
+    got = tk.stream_rows(*args, **kw)
+    want = tk.stream_rows_plain(*args, **kw)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["stream_rows"] == launches + 1
     assert not bool(torch.isnan(want).any())  # every slot written
+    assert got.dtype == want.dtype == kw["out_dtype"]
     assert torch.equal(got, want)
 
 
@@ -253,11 +263,13 @@ def _pool_both(plan, args, mm):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
 @pytest.mark.parametrize("weights", ["unit", "random"])
-def test_window_pool_kernel_matches_plain(dev, mm, weights):
+@pytest.mark.parametrize("r_dtype", ["float32", "bfloat16"])
+def test_window_pool_kernel_matches_plain(dev, mm, weights, r_dtype):
     plan, sw = _work(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    r_u = torch.randn((plan.u_total, D), generator=gen, device=dev)
+    r_u = torch.randn((plan.u_total, D), generator=gen, device=dev).to(
+        getattr(torch, r_dtype))
     r_u[(sw.rows_u == -1).reshape(-1)] = 0  # as K3 writes the sentinels
     _pool_both(plan, (plan, r_u, sw.vals_u, _wts(sw, weights), sw.w2t),
                getattr(torch, mm))
@@ -267,10 +279,12 @@ def test_window_pool_kernel_matches_plain(dev, mm, weights):
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["weight0", "budgeted", "dropped_bag",
                                   "repeat_row"])
-def test_window_pool_edge_cases_kernel_matches_plain(dev, case, mm):
+@pytest.mark.parametrize("r_dtype", ["float32", "bfloat16"])
+def test_window_pool_edge_cases_kernel_matches_plain(dev, case, mm, r_dtype):
     plan, work, r_u = _pool_case(case)
     sw = _device_work(work, dev)
-    got = _pool_both(plan, (plan, torch.from_numpy(r_u).to(dev), sw.vals_u,
-                            sw.wts_u, sw.w2t), getattr(torch, mm))
+    r_u = torch.from_numpy(r_u).to(dev, getattr(torch, r_dtype))
+    got = _pool_both(plan, (plan, r_u, sw.vals_u, sw.wts_u, sw.w2t),
+                     getattr(torch, mm))
     if case == "dropped_bag":  # +0, written although no slot lists it
         assert not bool(got[1, 5].view(torch.int32).any())

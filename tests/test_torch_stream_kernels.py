@@ -9,6 +9,11 @@ K1 and K3 compute the same products and copies as JAX: K1 within rtol 1e-6
 / atol 1e-6, K3 bit-exact. K4 and the streamed forward sum in another order
 (index_add_ against one-hot matmuls): rtol 1e-5 / atol 1e-5.
 
+The bf16 intermediates (the step's g_dtype): gather_grads, K1 and K3 with
+out_dtype bf16 round the same fp32 values once to the nearest bf16, so they
+equal JAX's bit for bit; K2 on a bf16 G_u and K4 on a bf16 R_u read exact
+bf16 values and are held at the fp32 cases' tolerances.
+
 K2 tolerances: fp32 tables/accumulators rtol 1e-5 / atol 1e-6 (the JAX kernel
 sums each block's grads with one-hot matmuls, the port per row in slot
 order); bf16 tables at most 1 bf16 ulp apart at the scale of the update's
@@ -66,10 +71,28 @@ def _acc(optimizer, plan, rng):
     return (rng.random((plan.padded_rows, D)) * 0.1).astype(np.float32)
 
 
-def _g_u(dly, work):
+def _g_u(dly, work, g_dtype="float32"):
     return np.array(jk.gather_grads(
         jnp.asarray(dly), jnp.asarray(work.vals_u), jnp.asarray(work.wts_u),
-        jnp.asarray(work.w2t)))
+        jnp.asarray(work.w2t), out_dtype=getattr(jnp, g_dtype)))
+
+
+def _to_torch(a):
+    """A numpy array (ml_dtypes bfloat16 included) as a torch tensor of
+    the same dtype and bits."""
+    a = np.array(a)  # a writable copy
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _assert_same(got, want):
+    """got (torch) and want (numpy, from JAX) hold the same dtype and equal
+    values: the same bits, but for the sign of a zero (K1's sentinel slots
+    are w * dly = -0 where dly < 0, JAX's one-hot sums give +0)."""
+    want = _to_torch(want)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 def _run_jax(optimizer, plan, table, acc, g_u, work, mm):
@@ -87,7 +110,7 @@ def _run_port(optimizer, plan, table, acc, g_u, work, mm, **kw):
     t_table = torch.from_numpy(table.copy())
     t_acc = None if acc is None else torch.from_numpy(acc.copy())
     out = tk.stream_update(
-        optimizer, plan, t_table, t_acc, torch.from_numpy(g_u.copy()),
+        optimizer, plan, t_table, t_acc, _to_torch(g_u),
         torch.from_numpy(work.rows_u), torch.from_numpy(work.item_block),
         torch.from_numpy(work.item_row0), torch.from_numpy(work.item_u), LR,
         mm_dtype=mm, **kw,
@@ -96,31 +119,41 @@ def _run_port(optimizer, plan, table, acc, g_u, work, mm, **kw):
     return out
 
 
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dly_dtype", ["float32", "bfloat16"])
-def test_gather_grads_matches_jax(dly_dtype):
-    """fp32 G_u from an fp32 or a bf16 cotangent (the bf16 tower's)."""
+def test_gather_grads_matches_jax(dly_dtype, g_dtype):
+    """G_u from an fp32 or a bf16 cotangent (the bf16 tower's), in fp32 or
+    in bf16 (the step's g_dtype): the fp32 product rounded once, JAX's bits."""
     _, plan, idx, wt, dly, _ = _setup()
     work = _work(plan, idx, wt, False)
     t_dly = torch.from_numpy(dly).to(getattr(torch, dly_dtype))
-    got = tk.gather_grads(
-        t_dly, torch.from_numpy(work.vals_u),
-        torch.from_numpy(work.wts_u), torch.from_numpy(work.w2t))
-    assert got.dtype == torch.float32
+    args = (t_dly, torch.from_numpy(work.vals_u),
+            torch.from_numpy(work.wts_u), torch.from_numpy(work.w2t))
+    got = tk.gather_grads(*args, out_dtype=getattr(torch, g_dtype))
+    assert got.dtype == getattr(torch, g_dtype)
     want = np.array(jk.gather_grads(
         jnp.asarray(dly, getattr(jnp, dly_dtype)), jnp.asarray(work.vals_u),
-        jnp.asarray(work.wts_u), jnp.asarray(work.w2t)))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+        jnp.asarray(work.wts_u), jnp.asarray(work.w2t),
+        out_dtype=getattr(jnp, g_dtype)))
+    if g_dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    else:
+        _assert_same(got, want)
+        assert torch.equal(got, tk.gather_grads(*args).to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("optimizer", ["sgd", "rwsadagrad", "adagrad"])
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
 @pytest.mark.parametrize("touched", [False, True], ids=["full", "touched"])
-def test_plain_stream_update_matches_jax(optimizer, mm, touched):
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+def test_plain_stream_update_matches_jax(optimizer, mm, touched, g_dtype):
+    """G_u in fp32 or bf16 (the step's g_dtype; JAX's kernel reads the
+    same bf16 G_u)."""
     rng, plan, idx, wt, dly, table = _setup()
     work = _work(plan, idx, wt, touched)
     assert work.num_real_items < plan.max_items  # pad items are present
     acc = _acc(optimizer, plan, rng)
-    g_u = _g_u(dly, work)
+    g_u = _g_u(dly, work, g_dtype)
     want = _run_jax(optimizer, plan, table, acc, g_u, work, getattr(jnp, mm))
     got = _run_port(optimizer, plan, table, acc, g_u, work,
                     getattr(torch, mm))
@@ -334,21 +367,32 @@ def _unit_wts(work):
 
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
 @pytest.mark.parametrize("weights", ["unit", "random"])
-def test_window_grads_matches_jax(mm, weights):
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+def test_window_grads_matches_jax(mm, weights, g_dtype):
+    """fp32 G_u within rtol 1e-6; bf16 G_u (out_dtype, the step's
+    g_dtype) JAX's bits and the fp32 G_u rounded once."""
     _, plan, idx, wt, dly, _ = _setup()
     work = _work(plan, idx, wt, False)
     wts = work.wts_u if weights == "random" else _unit_wts(work)
     want = np.asarray(jk.window_grads(
         jnp.asarray(dly), jnp.asarray(work.vals_u), jnp.asarray(wts),
-        jnp.asarray(work.w2t), mm_dtype=getattr(jnp, mm), interpret=True))
+        jnp.asarray(work.w2t), mm_dtype=getattr(jnp, mm),
+        out_dtype=getattr(jnp, g_dtype), interpret=True))
     # the [B, T, d] cotangent's transposed view, as the train step passes it
     dly_btd = _t(dly.transpose(1, 0, 2))
-    got = tk.window_grads(dly_btd.transpose(0, 1), _t(work.vals_u), _t(wts),
-                          _t(work.w2t), mm_dtype=getattr(torch, mm))
-    assert got.dtype == torch.float32 and got.shape == (plan.u_total, D)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    args = (dly_btd.transpose(0, 1), _t(work.vals_u), _t(wts), _t(work.w2t))
+    got = tk.window_grads(*args, mm_dtype=getattr(torch, mm),
+                          out_dtype=getattr(torch, g_dtype))
+    assert got.dtype == getattr(torch, g_dtype)
+    assert got.shape == (plan.u_total, D)
+    if g_dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    else:
+        _assert_same(got, want)
+        g32 = tk.window_grads(*args, mm_dtype=getattr(torch, mm))
+        assert torch.equal(got, g32.to(torch.bfloat16))
     sent = work.rows_u.reshape(-1) == tsp.SENTINEL_ROW
-    assert (got.numpy()[sent] == 0).all()
+    assert (got.float().numpy()[sent] == 0).all()
 
 
 def _overrun_case():
@@ -370,10 +414,11 @@ def _overrun_case():
 @pytest.mark.parametrize("case", ["overrun", "multi_table"])
 @pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
-def test_stream_rows_matches_jax(case, table_dtype, mm):
+@pytest.mark.parametrize("r_dtype", ["float32", "bfloat16"])
+def test_stream_rows_matches_jax(case, table_dtype, mm, r_dtype):
     """Bit-exact against JAX on the full list, and every slot holds its
-    row: table[padded_offsets[t] + rows_u] (rounded to mm), 0 at
-    sentinels."""
+    row: table[padded_offsets[t] + rows_u] (rounded to mm, then to R_u's
+    dtype r_dtype, the step's g_dtype), 0 at sentinels."""
     rng = np.random.default_rng(11)
     if case == "overrun":
         plan, work = _overrun_case()
@@ -385,20 +430,23 @@ def test_stream_rows_matches_jax(case, table_dtype, mm):
     want = np.asarray(jk.stream_rows(
         plan, jt, jnp.asarray(work.rows_u), jnp.asarray(work.item_block),
         jnp.asarray(work.item_row0), jnp.asarray(work.item_u),
-        mm_dtype=getattr(jnp, mm), interpret=True))
+        mm_dtype=getattr(jnp, mm), out_dtype=getattr(jnp, r_dtype),
+        interpret=True))
     tt = _t(np.asarray(jt.astype(jnp.float32))).to(getattr(torch, table_dtype))
     got = tk.stream_rows(
         plan, tt, _t(work.rows_u), _t(work.item_block), _t(work.item_row0),
-        _t(work.item_u), mm_dtype=getattr(torch, mm))
-    np.testing.assert_array_equal(got.numpy(), want)
+        _t(work.item_u), mm_dtype=getattr(torch, mm),
+        out_dtype=getattr(torch, r_dtype))
+    _assert_same(got, want)
     rows = work.rows_u.reshape(-1)
     t_of = np.repeat(work.w2t, 1024)
     real = rows != tsp.SENTINEL_ROW
     ref = tt[torch.from_numpy(np.asarray(plan.padded_offsets)[t_of[real]]
-                              + rows[real])].to(getattr(torch, mm)).float()
+                              + rows[real])].to(getattr(torch, mm)).to(
+                                  getattr(torch, r_dtype))
     torch.testing.assert_close(got[torch.from_numpy(real)], ref, rtol=0,
                                atol=0)
-    assert (got.numpy()[~real] == 0).all()
+    assert (got.float().numpy()[~real] == 0).all()
 
 
 def test_stream_rows_needs_the_full_list():
@@ -417,15 +465,19 @@ def test_stream_rows_needs_the_full_list():
 
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
 @pytest.mark.parametrize("weights", ["unit", "random"])
-def test_window_pool_matches_jax(mm, weights):
+@pytest.mark.parametrize("r_dtype", ["float32", "bfloat16"])
+def test_window_pool_matches_jax(mm, weights, r_dtype):
+    """R_u in fp32 or bf16 (the step's g_dtype); pooled fp32 either way."""
     rng, plan, idx, wt, _, _ = _setup()
     work = _work(plan, idx, wt, False)
     wts = work.wts_u if weights == "random" else _unit_wts(work)
-    r_u = rng.normal(size=(plan.u_total, D)).astype(np.float32)
+    r_u = np.asarray(jnp.asarray(
+        rng.normal(size=(plan.u_total, D)).astype(np.float32),
+        getattr(jnp, r_dtype)))
     want = np.asarray(jk.window_pool(
         plan, jnp.asarray(r_u), jnp.asarray(work.vals_u), jnp.asarray(wts),
         jnp.asarray(work.w2t), mm_dtype=getattr(jnp, mm), interpret=True))
-    got = tk.window_pool(plan, _t(r_u), _t(work.vals_u), _t(wts),
+    got = tk.window_pool(plan, _to_torch(r_u), _t(work.vals_u), _t(wts),
                          _t(work.w2t), mm_dtype=getattr(torch, mm))
     assert got.shape == (len(TABLES), B, D) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
@@ -482,9 +534,11 @@ def test_warp_sum_order():
 
 
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
-def test_stream_embedding_fwd_matches_jax(mm):
-    """K3 then K4 against JAX's stream_embedding_fwd and against the
-    port's own gather forward (one F.embedding_bag)."""
+@pytest.mark.parametrize("r_dtype", ["float32", "bfloat16"])
+def test_stream_embedding_fwd_matches_jax(mm, r_dtype):
+    """K3 then K4, R_u in r_dtype (the step's g_dtype), against JAX's
+    stream_embedding_fwd and, with fp32 throughout, against the port's own
+    gather forward (one F.embedding_bag)."""
     from dlrm_tpu_torch.ops.embedding import grouped_embedding_bag
 
     _, plan, idx, wt, _, table = _setup()
@@ -493,11 +547,14 @@ def test_stream_embedding_fwd_matches_jax(mm):
               work.item_block, work.item_row0, work.item_u)
     want = np.asarray(jk.stream_embedding_fwd(
         plan, jnp.asarray(table), *[jnp.asarray(a) for a in arrays],
-        mm_dtype=getattr(jnp, mm), interpret=True))
+        mm_dtype=getattr(jnp, mm), r_dtype=getattr(jnp, r_dtype),
+        interpret=True))
     got = tk.stream_embedding_fwd(plan, _t(table), *[_t(a) for a in arrays],
-                                  mm_dtype=getattr(torch, mm))
+                                  mm_dtype=getattr(torch, mm),
+                                  r_dtype=getattr(torch, r_dtype))
+    assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
-    if mm == "float32":
+    if mm == r_dtype == "float32":
         ref = grouped_embedding_bag(
             _t(table), torch.tensor(plan.padded_offsets), _t(idx), _t(wt),
             plan.hot)
@@ -513,7 +570,9 @@ def test_kernel_wrappers_reject_bad_inputs():
              _t(work.item_u)]
     r_u = torch.zeros((plan.u_total, D))
     with pytest.raises(TypeError, match="out_dtype"):
-        tk.window_grads(_t(dly), vals, wts, w2t, out_dtype=torch.bfloat16)
+        tk.window_grads(_t(dly), vals, wts, w2t, out_dtype=torch.float16)
+    with pytest.raises(TypeError, match="out_dtype"):
+        tk.gather_grads(_t(dly), vals, wts, w2t, out_dtype=torch.float16)
     with pytest.raises(TypeError, match="mm_dtype"):
         tk.window_grads(_t(dly), vals, wts, w2t, mm_dtype=torch.float16)
     with pytest.raises(ValueError, match="unit column stride"):
@@ -525,13 +584,18 @@ def test_kernel_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="shape"):
         tk.stream_rows(plan, _t(table)[:-1], *items)
     with pytest.raises(TypeError, match="out_dtype"):
-        tk.stream_rows(plan, _t(table), *items, out_dtype=torch.bfloat16)
+        tk.stream_rows(plan, _t(table), *items, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="contiguous"):
         tk.stream_rows(plan, _t(table).t().contiguous().t(), *items)
     with pytest.raises(ValueError, match="shape"):
         tk.window_pool(plan, r_u[:-1], vals, wts, w2t)
     with pytest.raises(TypeError, match="dtype"):
         tk.window_pool(plan, r_u.double(), vals, wts, w2t)
+    with pytest.raises(TypeError, match="r_u has dtype"):
+        tk.window_pool(plan, r_u.half(), vals, wts, w2t)
+    with pytest.raises(TypeError, match="g_u has dtype"):
+        tk.stream_update("sgd", plan, _t(table), None, r_u.half(), *items,
+                         LR)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tk.window_pool(plan, r_u.to("meta"), vals.to("meta"),
                        wts.to("meta"), w2t.to("meta"))

@@ -6,9 +6,22 @@ tests/test_stream_step.py. Mirrors its cases with their tolerances: loss
 rtol 1e-5 / atol 1e-6 at every step, params and accumulators rtol 1e-4 /
 atol 1e-5 after the last (dense elements whose Adagrad grads are all at
 rounding level excepted, see _assert_params_close); bf16 tables (round to
-nearest on both sides) loss rtol 0.02 and table rtol 0.05 / atol 0.02."""
+nearest on both sides) loss rtol 0.02 and table rtol 0.05 / atol 0.02.
+
+bf16 intermediates (g_dtype, G_u and R_u in bf16) with fp32 tables: the
+loss at every step at the fp32 tolerance, and after the first step the
+dense params and accumulators at PARAM and each table element within PARAM
+or within 2^-7 of its move. The port's G_u is its fp32 G_u rounded once to
+bf16, as JAX's is; the two fp32 G_u differ at rounding level (dly comes from
+towers that sum in another order), and where they lie on either side of a
+bf16 rounding boundary the two bf16 G_u are one bf16 ulp apart, up to 2^-7
+of the element. That moves the update of a row with one hit by up to 2^-7
+of itself. From the second step on such a row's new value changes the
+forward, so the runs part as two runs one ulp apart do; only the losses are
+held there."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -129,7 +142,10 @@ class Pair:
         return jb, tb
 
 
-def _run_both(pair, jbatches, tbatches, jkw=None, tkw=None, loss_tol=LOSS):
+def _run_both(pair, jbatches, tbatches, jkw=None, tkw=None, loss_tol=LOSS,
+              after_first=None):
+    """Both steps over the batches; after_first((jp, js), (tp, ts)) sees
+    the state after the first step."""
     jp, js = pair.jax_state()
     tp, ts = pair.port_state()
     jf, tf = pair.jax_step(**(jkw or {})), pair.port_step(**(tkw or {}))
@@ -139,6 +155,9 @@ def _run_both(pair, jbatches, tbatches, jkw=None, tkw=None, loss_tol=LOSS):
         assert tp2 is tp and ts2 is ts  # updated in place
         np.testing.assert_allclose(float(tl), float(jl), **loss_tol,
                                    err_msg=f"loss at step {i}")
+        if i == 0 and after_first is not None:
+            after_first((_np(jp), _np(js)),
+                        (params_to_jax(tp), params_to_jax(ts)))
     assert ts["step"] == len(tbatches)
     return (_np(jp), _np(js)), (params_to_jax(tp), params_to_jax(ts))
 
@@ -337,19 +356,91 @@ def test_stream_step_bf16_tables_tracks_jax():
                                p32["emb"]["stacked"], rtol=0.05, atol=0.02)
 
 
+def _assert_within_one_g_ulp(pair, jax_state, port_state):
+    """After one step at g_dtype=bf16 (see the module doc): dense params
+    and accumulators at PARAM, each table element within PARAM or within
+    2^-7 of its move."""
+    (jp, js), (tp, ts) = jax_state, port_state
+    a, b, w0 = (np.asarray(x["emb"]["stacked"], np.float64)
+                for x in (tp, jp, pair.jp))
+    tol = PARAM["atol"] + PARAM["rtol"] * np.abs(b) + 2.0**-7 * np.abs(b - w0)
+    assert (np.abs(a - b) <= tol).all(), np.abs(a - b).max()
+    _assert_params_close({k: v for k, v in tp.items() if k != "emb"},
+                         {k: v for k, v in jp.items() if k != "emb"}, js)
+    _assert_close_trees(ts, js, PARAM)
+
+
 @pytest.mark.parametrize("optimizer", ["sgd", "rwsadagrad", "adagrad"])
 @pytest.mark.parametrize("fwd_impl,grad_impl",
                          [("stream", "onehot"), ("gather", "onehot")])
-def test_kernel_paths_match_jax(optimizer, fwd_impl, grad_impl):
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+def test_kernel_paths_match_jax(optimizer, fwd_impl, grad_impl, g_dtype):
     """The streamed forward (K3 + K4) and the one-hot grads (K1) on the
     full item list, the padded layout, unit weights: the batches of
-    test_stream_step_matches_jax, so only the kernels differ."""
+    test_stream_step_matches_jax, so only the kernels differ. G_u and R_u
+    in g_dtype on both sides (bf16: the tolerances of the module doc)."""
     pair = Pair(optimizer)
     jb, tb = pair.batches([_arrays(s, weights="none") for s in range(STEPS)])
-    impl = dict(fwd_impl=fwd_impl, grad_impl=grad_impl)
-    (jp, js), (tp, ts) = _run_both(pair, jb, tb, jkw=impl, tkw=impl)
-    _assert_params_close(tp, jp, js)
-    _assert_close_trees(ts, js, PARAM)
+    jkw = dict(fwd_impl=fwd_impl, grad_impl=grad_impl,
+               g_dtype=getattr(jnp, g_dtype))
+    tkw = dict(jkw, g_dtype=getattr(torch, g_dtype))
+    first = (None if g_dtype == "float32" else
+             functools.partial(_assert_within_one_g_ulp, pair))
+    (jp, js), (tp, ts) = _run_both(pair, jb, tb, jkw=jkw, tkw=tkw,
+                                   after_first=first)
+    if g_dtype == "float32":
+        _assert_params_close(tp, jp, js)
+        _assert_close_trees(ts, js, PARAM)
+
+
+@pytest.mark.parametrize("grad_impl", ["onehot", "gather"])
+def test_bf16_g_on_the_gather_forward_changes_no_bit(grad_impl):
+    """bf16 tables, the gather forward, unit weights, mm_dtype fp32 (with
+    bf16, K2 rounds each G row to bf16 whatever g_dtype is): the pooled
+    value and so dly are bf16, and G_u = 1 * dly is a bf16 value already,
+    so g_dtype=bf16 rounds nothing: the port's params, accumulator and losses
+    equal its fp32-G_u step's bit for bit over 3 steps, as JAX's do. On the
+    stream forward they part."""
+    pair = Pair("rwsadagrad", emb_bf16=True)
+    arrays = [_arrays(60 + s, weights="none") for s in range(STEPS)]
+    jb, tb = pair.batches(arrays)
+    kw = dict(grad_impl=grad_impl, stochastic_round=False)
+    outs = {}
+    for name, g_dtype in (("port fp32", torch.float32),
+                          ("port bf16", torch.bfloat16)):
+        p, s = pair.port_state()
+        step = pair.port_step(g_dtype=g_dtype, **kw)
+        losses = [float(step(p, s, b, LR)[2]) for b in tb]
+        outs[name] = losses, jax.tree_util.tree_leaves(
+            (params_to_jax(p), params_to_jax(s)))
+    for name, g_dtype in (("jax fp32", jnp.float32),
+                          ("jax bf16", jnp.bfloat16)):
+        p, s = pair.jax_state()
+        step = pair.jax_step(g_dtype=g_dtype, **kw)
+        losses = []
+        for b in jb:
+            p, s, loss, _ = step(p, s, b, LR)
+            losses.append(float(loss))
+        outs[name] = losses, jax.tree_util.tree_leaves((_np(p), _np(s)))
+    for side in ("port", "jax"):
+        (l32, x32), (l16, x16) = outs[f"{side} fp32"], outs[f"{side} bf16"]
+        assert l16 == l32, side
+        assert len(x16) == len(x32)
+        for x, y in zip(x16, x32):
+            assert x.dtype == y.dtype
+            assert np.array_equal(np.atleast_1d(x).view(np.uint8),
+                                  np.atleast_1d(y).view(np.uint8)), side
+    np.testing.assert_allclose(outs["port bf16"][0], outs["jax bf16"][0],
+                               rtol=0.02)
+    # on the stream forward K4's pooled value, and so dly, is fp32: there
+    # g_dtype=bf16 rounds G_u and the tables part
+    tables = []
+    for g_dtype in (torch.float32, torch.bfloat16):
+        p, s = pair.port_state()
+        pair.port_step(fwd_impl="stream", g_dtype=g_dtype, **kw)(
+            p, s, tb[0], LR)
+        tables.append(p["emb"]["stacked"])
+    assert not torch.equal(*tables)
 
 
 def test_stream_fwd_ragged_hot_sizes_random_weights():
@@ -372,6 +463,15 @@ def test_grad_impl_defaults_to_onehot_as_in_jax():
         params = inspect.signature(fn).parameters
         assert params["grad_impl"].default == "onehot"
         assert params["fwd_impl"].default == "gather"
+
+
+def test_g_dtype_defaults_to_fp32_as_in_jax():
+    import inspect
+
+    port = inspect.signature(tstep.make_stream_train_step).parameters
+    ref = inspect.signature(jstep.make_stream_train_step).parameters
+    assert port["g_dtype"].default == torch.float32
+    assert ref["g_dtype"].default == jnp.float32
 
 
 def test_stream_step_rejects_unported_paths():
