@@ -62,8 +62,10 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      K4 (twice) and K2 (full list) call against its plain version, bit for
      bit; each kernel's time, its plain version's and its bound from this
      run's data, K2's on the full list, and the library
-     yardsticks (K3 against one index_select of the slots' rows, K4
-     against one index_add_, K3+K4 against one F.embedding_bag,
+     yardsticks (K1 against one F.embedding_bag with one index a bag and
+     the slot weights as per_sample_weights, in fp32 and in bf16, over a
+     contiguous copy of dly; K3 against one index_select of the slots'
+     rows, K4 against one index_add_, K3+K4 against one F.embedding_bag,
      gather_grads beside K1). Then the same 23 steps with g_dtype=bf16
      (G_u and R_u in bf16) from the same start on the same batches, which
      must give the fp32 set's losses and params bit for bit (mm_dtype is
@@ -101,6 +103,11 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      P4's S, D, M, N, P, Q against t + 1 and copy_, P3's V1-V6 with
      index_add_ and K2's ladder at the main-path shape), with their
      checks; it prints no "ok" line.
+     `python3 chip_smoke.py --k1` builds and runs only K1 on phase 4's
+     work with G_u in fp32 and bf16, against its plain version and on dly
+     cast to bf16 first (the same bits), then times K1, the cast with K1,
+     gather_grads and K1's library call in three rounds (a K1 A/B of two
+     trees in about 15 s each after the build); it prints no "ok" line.
   6. the trainer, dlrm_tpu_torch/v2_main.py: (a) processed Criteo days drawn
      from a numpy seed for bench.py's tables (3 days, 262,144 rows), made
      multi-hot with V2_HOT_SIZES by materialize_multihot_dataset (224 MB of
@@ -1243,6 +1250,24 @@ def g_bf16_record(name, res, work, launches):
             "bound_by": bound_by, "max_abs_err": err, "launches": launches}
 
 
+def k1_library_ms(k1_args, dtype):
+    """K1's library yardstick: one F.embedding_bag, one index a bag
+    (offsets arange(U)), mode sum, the slot weights as per_sample_weights,
+    over a contiguous [T * B, d] copy of dly made before the timed calls.
+    In fp32 it computes K1's function at mm_dtype fp32 with fp32 G_u; in
+    bf16 on dly and the weights rounded to bf16, into bf16 G_u (its
+    products are not K1's bits). ms a call, 10 calls."""
+    dly, vals_u, wts_u, w2t = k1_args
+    t, b, d = dly.shape
+    flat = dly.to(dtype).reshape(t * b, d)  # a copy: dly is a view
+    idx = (w2t.long()[:, None, None] * b + vals_u.long()).reshape(-1)
+    offsets = torch.arange(idx.numel(), device=dly.device)
+    psw = wts_u.reshape(-1).to(dtype)
+    return time_ms(lambda: F.embedding_bag(idx, flat, offsets, mode="sum",
+                                           per_sample_weights=psw),
+                   CUDA, 10)
+
+
 def phase_kernel_path():
     """Phase 4: the kernel path at full width, with G_u and R_u in fp32 and
     then in bf16 (g_dtype). Returns K1's, K3's and K4's entries, each with
@@ -1278,6 +1303,8 @@ def phase_kernel_path():
 
     # the library yardsticks
     gg_ms = time_ms(lambda: gather_grads(*k1_args), CUDA, 10, warmup=0)
+    k1_lib = {gdt: k1_library_ms(k1_args, gdt)
+              for gdt in (torch.float32, torch.bfloat16)}
     # K3's library yardstick: one index_select of every slot's global row.
     # It differs from K3 at the sentinel slots (row 0, not zeros) and in
     # its output type (the bf16 table's, not fp32).
@@ -1307,13 +1334,17 @@ def phase_kernel_path():
                     CUDA, 10, warmup=0)
     log(f"phase 4: K3+K4 {k34_ms:.3f} ms against one F.embedding_bag "
         f"{eb_ms:.3f} ms on the same batch; gather_grads {gg_ms:.3f} ms "
-        f"beside K1 {res['window_grads'][1]:.3f} ms")
+        f"and K1's library call (F.embedding_bag, one index a bag) "
+        f"{k1_lib[torch.float32]:.3f} ms in fp32, "
+        f"{k1_lib[torch.bfloat16]:.3f} ms in bf16 beside K1 "
+        f"{res['window_grads'][1]:.3f} ms")
 
     work32 = kernel_work(plan, sw, hb, 4)
     log(f"phase 4: kernels at full width ({plan.u_total} slots, "
         f"{int((sw.rows_u != SENTINEL_ROW).sum())} hits, {touched_rows(hb)} "
         f"touched rows, {sw.item_block.numel()} items):")
-    sources = {"window_grads": ("window_grads.cu", 96, None),
+    sources = {"window_grads": ("window_grads.cu", 96,
+                                k1_lib[torch.float32]),
                "stream_rows": ("stream_rows.cu", 613, k3_lib),
                "window_pool": ("window_pool.cu", 679, k4_lib)}
     entries = {
@@ -1347,6 +1378,7 @@ def phase_kernel_path():
     work16 = kernel_work(plan, sw, hb, 2)
     for k, e in entries.items():
         e["g_bf16"] = g_bf16_record(k, res16[k], work16[k], launches16[k])
+    entries["window_grads"]["g_bf16"]["library_ms"] = k1_lib[torch.bfloat16]
     k2 = g_bf16_record("stream_update (full list)", res16["stream_update"],
                        work16["stream_update"], launches16["stream_update"])
     k2_32_bound, _ = bound(*work32["stream_update"])
@@ -4941,6 +4973,77 @@ def device_times():
     return 0
 
 
+K1_ROUNDS = 3
+
+
+def k1_times():
+    """`python3 chip_smoke.py --k1`: the build, then K1 alone on phase 4's
+    work (a batch of the full-width plan, unit weights, a random fp32 dly
+    as the [B, T, d] cotangent's transposed view, mm_dtype bf16): G_u in
+    fp32 and in bf16, each bit for bit against its plain version, and K1
+    on dly cast to bf16 first (the kernel's own rounding, so the same
+    bits); then in K1_ROUNDS rounds the ms of each (CUDA events, 20 calls),
+    of the cast and K1 together, of gather_grads and of K1's library call,
+    and the bound. Prints one JSON line {"k1": ...}; no "ok" line."""
+    t_start = time.perf_counter()
+    bf16 = torch.bfloat16
+    try:
+        phase_build()
+        tables = (200_000,) * 26
+        plan = make_stream_plan(tables, 128, BATCH, V2_HOT_SIZES,
+                                block_rows=2048)
+        timing = {"read": 0.0, "build": 0.0, "h2d": 0.0}
+        cfg = DLRMConfig(embedding_dim=128, table_sizes=tables,
+                         mlp_bot=(13, 512, 256, 128))
+        hb = host_batch(np.random.default_rng(0), plan, cfg, timing,
+                        touched=False)
+        sw = to_dev(hb, plan, timing).stream
+        dly = torch.randn((BATCH, len(tables), 128), generator=_gen(6),
+                          device="cuda").transpose(0, 1)
+        args = (sw.vals_u, (sw.rows_u != SENTINEL_ROW).float(), sw.w2t)
+        dly16 = dly.to(bf16)
+        calls = {}
+        out = {"slots": plan.u_total}
+        for name, gdt in (("fp32", torch.float32), ("bf16", bf16)):
+            kw = dict(mm_dtype=bf16, out_dtype=gdt)
+            got = window_grads(dly, *args, **kw)
+            check(torch.equal(got, window_grads_plain(dly, *args, **kw)),
+                  f"--k1: K1 with {name} G_u differs from its plain version")
+            check(torch.equal(window_grads(dly16, *args, **kw), got),
+                  f"--k1: K1 on dly cast to bf16 differs ({name} G_u)")
+            del got
+            calls.update({
+                f"K1 {name}": functools.partial(window_grads, dly, *args,
+                                                **kw),
+                f"K1 {name}, bf16 dly": functools.partial(
+                    window_grads, dly16, *args, **kw),
+                f"cast + K1 {name}": lambda kw=kw: window_grads(
+                    dly.to(bf16), *args, **kw),
+                f"gather_grads {name}": functools.partial(
+                    gather_grads, dly, *args, out_dtype=gdt),
+            })
+            bound_ms, _ = bound(*kernel_work(plan, sw, hb, 4 if name ==
+                                             "fp32" else 2)["window_grads"])
+            out[f"bound {name}"] = bound_ms
+        calls["cast"] = lambda: dly.to(bf16)
+        for _ in range(K1_ROUNDS):
+            for name, fn in calls.items():
+                out.setdefault(name, []).append(time_ms(fn, CUDA, 20))
+            for name, gdt in (("fp32", torch.float32), ("bf16", bf16)):
+                out.setdefault(f"library {name}", []).append(
+                    k1_library_ms((dly, *args), gdt))
+        for name in ("fp32", "bf16"):
+            log(f"--k1: K1 {name} G_u " + ", ".join(
+                f"{x:.4f}" for x in out[f"K1 {name}"]) + f" ms; bound "
+                f"{out[f'bound {name}']:.4f} ms")
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(json.dumps({"k1": out}))
+    log(f"chip_smoke --k1: done in {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4949,6 +5052,8 @@ def main() -> int:
         return device_times()
     if sys.argv[1:] == ["--tools"]:
         return tools_only()
+    if sys.argv[1:] == ["--k1"]:
+        return k1_times()
     t_start = time.perf_counter()
     try:
         phase_build()

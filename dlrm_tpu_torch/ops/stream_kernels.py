@@ -236,7 +236,8 @@ _ENTRY_POINTS = {
     "window_grads": ("window_grads", "k1_window_grads", [
         _I, _P, _I64, _I64,  # dly_bf16, dly, stride_t, stride_b
         _P, _P, _P, _P,  # vals_u, wts_u, w2t, g_u
-        _I64, _I, _I, _I, _P,  # u_total, d, mm_bf16, out_bf16, stream
+        _I64, _I, _I, _I,  # u_total, d, mm_bf16, out_bf16
+        _I, _P,  # grid, stream
     ]),
     "stream_update": ("stream_update", "k2_stream_update", [
         _I, _I, _I,  # opt, table_bf16, g_bf16
@@ -486,13 +487,38 @@ def window_grads(
     if dev.type == "cpu":
         return window_grads_plain(dly, vals_u, wts_u, w2t,
                                   out_dtype=out_dtype, mm_dtype=mm_dtype)
-    d = dly.shape[2]
     _check_rows4("dly", dly)
-    g_u = torch.empty((uw * WINDOW, d), dtype=out_dtype, device=dev)
-    _launch("window_grads", dev, int(dly.dtype == torch.bfloat16),
-            dly.data_ptr(), dly.stride(0), dly.stride(1), vals_u.data_ptr(),
-            wts_u.data_ptr(), w2t.data_ptr(), g_u.data_ptr(), uw * WINDOW, d,
-            int(mm_dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
+    return _window_grads_launch(dly, vals_u, wts_u, w2t, uw * WINDOW,
+                                out_dtype, mm_dtype)
+
+
+K1_TILE = 32  # slots a warp tile (window_grads.cu kTile)
+K1_WARPS = 8  # warps a block (u_layout.cuh kThreads / 32)
+
+
+def window_grads_grid(u_total: int) -> tuple:
+    """K1's launch for u_total slots: (its warp tiles of K1_TILE slots, its
+    blocks: a warp a tile, K1_WARPS tiles a block; 0 blocks, no launch,
+    for no slot)."""
+    tiles = -(-u_total // K1_TILE)
+    return tiles, -(-tiles // K1_WARPS)
+
+
+def _window_grads_launch(dly, vals_u, wts_u, w2t, u_total, out_dtype,
+                         mm_dtype) -> torch.Tensor:
+    """K1 on the card over the first u_total slots: G_u [u_total, d].
+    window_grads passes whole windows; a count that ends inside a warp
+    tile reaches the kernel's ragged last tile (the CUDA tests)."""
+    dev = dly.device
+    g_u = torch.empty((u_total, dly.shape[2]), dtype=out_dtype, device=dev)
+    _, grid = window_grads_grid(u_total)
+    if grid:
+        _launch("window_grads", dev, int(dly.dtype == torch.bfloat16),
+                dly.data_ptr(), dly.stride(0), dly.stride(1),
+                vals_u.data_ptr(), wts_u.data_ptr(), w2t.data_ptr(),
+                g_u.data_ptr(), u_total, dly.shape[2],
+                int(mm_dtype == torch.bfloat16),
+                int(out_dtype == torch.bfloat16), grid)
     return g_u
 
 

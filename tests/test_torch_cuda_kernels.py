@@ -224,6 +224,71 @@ def test_window_grads_kernel_matches_plain(dev, dly_dtype, mm, weights,
     assert torch.equal(got, want)
 
 
+# K1's edges: case -> (windows, tables, d, slots launched or None for all)
+K1_CASES = {
+    "ragged_tile": (2, 3, 128, 1000),  # ends inside a warp tile
+    "below_tile": (1, 3, 128, 20),  # fewer slots than one warp tile
+    "many_blocks": (300, 26, 128, None),  # 1,200 blocks over 26 tables
+    "mixed_tables": (12, 5, 128, None),  # every window another table
+    "d64": (6, 4, 64, None),
+    "d256": (6, 4, 256, None),
+    "sentinels": (6, 3, 128, None),  # all-sentinel windows, zero weights
+}
+
+
+def _k1_case(case, layout, dly_dtype, dev, seed=21):
+    """Windows of random tables, bags and weights in [0.5, 1.5) (0 at
+    sentinel slots: "sentinels" has windows 1 and 4 all sentinel and 30 %
+    zero weights elsewhere), and dly as the [B, T, d] cotangent's
+    transposed view or a contiguous [T, B, d]."""
+    uw, t, d, _ = K1_CASES[case]
+    b = 200
+    rng = np.random.default_rng(seed)
+    w2t = rng.integers(0, t, uw)
+    if case == "mixed_tables":
+        w2t = (np.arange(uw) * 3 + 1) % t
+    vals = rng.integers(0, b, (uw, 8, 128))
+    wts = rng.uniform(0.5, 1.5, (uw, 8, 128)).astype(np.float32)
+    if case == "sentinels":
+        wts[rng.random(wts.shape) < 0.3] = 0.0
+        vals[[1, 4]] = 0
+        wts[[1, 4]] = 0.0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    shape = (b, t, d) if layout == "strided" else (t, b, d)
+    dly = torch.randn(shape, generator=gen, device=dev).to(
+        getattr(torch, dly_dtype))
+    if layout == "strided":
+        dly = dly.transpose(0, 1)
+    return (dly, torch.from_numpy(vals).to(dev, torch.int32),
+            torch.from_numpy(wts).to(dev),
+            torch.from_numpy(w2t).to(dev, torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K1_CASES))
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("dly_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+def test_window_grads_edges_kernel_matches_plain(dev, case, layout,
+                                                 dly_dtype, mm, g_dtype):
+    args = _k1_case(case, layout, dly_dtype, dev)
+    mm_dt, g_dt = getattr(torch, mm), getattr(torch, g_dtype)
+    slots = K1_CASES[case][3]
+    want = tk.window_grads_plain(*args, mm_dtype=mm_dt, out_dtype=g_dt)
+    launches = tk.LAUNCHES["window_grads"]
+    if slots is None:
+        got = tk.window_grads(*args, mm_dtype=mm_dt, out_dtype=g_dt)
+    else:  # a count that is not whole windows: the launch under the wrapper
+        got = tk._window_grads_launch(*args, slots, g_dt, mm_dt)
+        want = want[:slots]
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["window_grads"] == launches + 1
+    assert got.dtype == g_dt and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])

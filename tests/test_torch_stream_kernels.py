@@ -27,6 +27,9 @@ edge cases (weight-0 slots, a budgeted table, a bag with every hit dropped,
 a bag hitting one row twice) come from tests/test_torch_cuda_kernels.py,
 which holds the kernels against the plain versions on the same cases."""
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -393,6 +396,46 @@ def test_window_grads_matches_jax(mm, weights, g_dtype):
         assert torch.equal(got, g32.to(torch.bfloat16))
     sent = work.rows_u.reshape(-1) == tsp.SENTINEL_ROW
     assert (got.float().numpy()[sent] == 0).all()
+
+
+@pytest.mark.parametrize("u_total,want", [
+    (0, (0, 0)),  # no slot: no launch
+    (20, (1, 1)),  # below one warp tile
+    (1000, (32, 4)),  # ends inside a warp tile
+    (1024, (32, 4)),  # one window
+    (300 * 1024, (9600, 1200)),
+    (3_763 * 1024, (120_416, 15_052)),  # phase 4's full width
+])
+def test_window_grads_grid(u_total, want):
+    """K1's launch: every slot lies in one of the tiles, and every tile has
+    a warp of the grid and every warp a tile (the last block's excepted)."""
+    tiles, grid = tk.window_grads_grid(u_total)
+    assert (tiles, grid) == want
+    assert (tiles - 1) * tk.K1_TILE < u_total <= tiles * tk.K1_TILE or (
+        u_total == tiles == 0)
+    assert (grid - 1) * tk.K1_WARPS < tiles <= grid * tk.K1_WARPS or (
+        tiles == grid == 0)
+
+
+def test_window_grads_launch_constants_match_the_kernel_source():
+    """K1_TILE is window_grads.cu's kTile, K1_WARPS its blocks' warps; a
+    tile lies in one window."""
+    csrc = os.path.join(os.path.dirname(tk.__file__), os.pardir, "csrc")
+    with open(os.path.join(csrc, "window_grads.cu")) as f:
+        tile = re.search(r"constexpr int kTile = (\d+);", f.read())
+    with open(os.path.join(csrc, "u_layout.cuh")) as f:
+        threads = re.search(r"constexpr int kThreads = (\d+);", f.read())
+    assert int(tile.group(1)) == tk.K1_TILE
+    assert int(threads.group(1)) == 32 * tk.K1_WARPS
+    assert tsp.WINDOW % tk.K1_TILE == 0
+
+
+def test_window_grads_of_no_window():
+    g_u = tk.window_grads(torch.zeros((2, 4, D)),
+                          torch.zeros((0, 8, 128), dtype=torch.int32),
+                          torch.zeros((0, 8, 128)),
+                          torch.zeros((0,), dtype=torch.int32))
+    assert g_u.shape == (0, D) and g_u.dtype == torch.float32
 
 
 def _overrun_case():
