@@ -13,7 +13,8 @@ ranks (coalesce_rows and row_scatter_add on every shard) behind both
 trainers; then serving: quantized inference on one card and over the
 ranks, and the forward's export; then the tools, scripts and entry
 points (the flagship forward, the multi-rank dry run, the MLPerf proxy, the
-shell scripts' twins, visualize and the launcher).
+shell scripts' twins, visualize and the launcher); then GspmdDLRM's
+row-sharded training of plain, QR and v_w models over several ranks.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -179,7 +180,7 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      line with the card count). (a) bench.py's model on a data 1 x model W
      grid in three plans: table-wise only, striped (on 2 shards every one
      of the 26 equal tables: a capacity budget stripes them all or none),
-     striped with the shared owner-bucket segment. In each: 3 steps with
+     striped with the shared owner-bucket segment. In each: 2 steps with
      fp32 tables and an fp32 tower from init_params(seed=0) against the
      single-card stream step on the same global batches: with SGD at lr
      1.0 the losses within rtol 1e-5, every rank's table rows within rtol
@@ -188,7 +189,7 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      with rwsadagrad at lr 0.001 the
      losses within rtol 1e-5 and the tables' and dense params' differences
      reported (element-wise Adagrad turns a gradient's rounding into a
-     whole lr step); then 3 steps
+     whole lr step); then 2 steps
      with bf16 tables and stochastic rounding: finite losses, the same on
      every rank, K2 launched once per step on every rank and nothing else,
      each rank's span per step (CUDA events), synchronizing calls past the
@@ -208,7 +209,7 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      striped, with per-table owner bucketing): 3 fp32 SGD steps (lr 1.0)
      against the single-card fused step on the same batches (losses rtol
      1e-5, each rank's table rows rtol 1e-5 / atol 1e-6, dense params rtol
-     1e-4 / atol 1e-5), then 5 rwsadagrad steps with the bf16 tower
+     1e-4 / atol 1e-5), then 3 rwsadagrad steps with the bf16 tower
      (finite losses equal on every rank, both fused kernels once per step
      on every rank, twice with column-wise tables, spans, syncs,
      shard_batch's host ms, peak); the first calls of coalesce_rows and
@@ -285,6 +286,34 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      subprocess beside (a) and (b), (d) and (g) beside (c), (e) and (c)'s
      CPU run beside (f). `python3 chip_smoke.py
      --tools` builds and runs phase 12 alone; it prints no "ok" line.
+  13. GspmdDLRM's training half (parallel/gspmd.py: every row-shardable
+     leaf split by rows over the ranks, the model's own step with its
+     lookups through parallel/row_sharded.py) on 2 ranks (NCCL on 2 cards,
+     else 2 ranks sharing the card over staged gloo), at bench.py's widths
+     (26 tables, d = 128, MLPs 13-512-256-128 and 479-1024-1024-512-256-1,
+     dot, BCE, the v2 hot sizes) cut to 20,000 rows a table and batch
+     2,048, fp32 tower, rwsadagrad at lr 1e-3, 3 steps in each of three
+     variants: plain tables (flat per-hit layout), QR tables (4
+     collisions, mult; padded layout) and learned v_w (flat), from one
+     init drawn on the card. Each step against train/step.py's dense step
+     on the card from the ranks' state before it (the init before the
+     first) on the same global batch taken in the ranks' two slices
+     (make_grad_accum_train_step: the tower's products in the ranks'
+     shapes; in one product of 2,048 rows cuBLAS rounds a few samples'
+     cotangents differently, and the rows that moves are printed): its
+     loss on every rank rtol 1e-5; the
+     ranks' unsharded params and accumulators after it: tables, QR's q and
+     r and v_w rtol 1e-5 / atol 1e-6 (all but the rows that 2 samples'
+     hits reach: a sample whose tower input, summed block by block, puts
+     a ReLU on the other side of 0 moves the rows its hits dominate by a
+     share of lr under rwsadagrad), dense params rtol 1e-4 / atol 1e-5,
+     but an element under element-wise Adagrad whose accumulator stays
+     below 1e-12 (rounding-level gradients, which Adagrad divides by
+     themselves) held to |dw| <= lr, accumulators rtol 1e-4 / atol 1e-8; every padded row exactly 0 after the steps. The single card's
+     own 3 steps, the whole batch at once: losses rtol 1e-5 of the ranks',
+     the params' drift from the ranks' printed. The path is ATen work (the
+     embedding bags, the dense gradient, the optimizer): every launch
+     count stays 0 on every rank.
 The last two lines are the kernels JSON (14 kernels: phase 7 adds
 coalesce_rows and row_scatter_add at the fused step's shape; their
 `launches` are phase 7a's, and `launches_by_path` gives 7a's, each
@@ -323,7 +352,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dlrm_tpu_torch import cli, v2_main
-from dlrm_tpu_torch.config import DCNConfig, DLRMConfig
+from dlrm_tpu_torch.config import DCNConfig, DLRMConfig, QRConfig
 from dlrm_tpu_torch.configs.presets import CRITEO_KAGGLE_COUNTS
 from dlrm_tpu_torch.data.multi_hot_criteo import (
     MultiHotCriteoDataset,
@@ -374,12 +403,16 @@ from dlrm_tpu_torch.optim.optimizers import (
     init_opt_state,
     tree_leaves,
     tree_map,
+    tree_map_with_path,
 )
 from dlrm_tpu_torch.probes.common import graph_us, host_us, time_ms
 from dlrm_tpu_torch.train import harness
 from dlrm_tpu_torch.train.fused_step import make_fused_train_step
 from dlrm_tpu_torch.train.pipeline import DevicePrefetcher
-from dlrm_tpu_torch.train.step import make_train_step
+from dlrm_tpu_torch.train.step import (
+    make_grad_accum_train_step,
+    make_train_step,
+)
 from dlrm_tpu_torch.train.stream_step import (
     cast_emb,
     init_stream_opt_state,
@@ -3029,13 +3062,14 @@ def phase_v1_trainer(tmp):
 # the DLRM-v2 trainer's sharded stream path (parallel/stream_butterfly.py)
 # over W ranks, each a process of its own: 9a the step in three plans, 9b
 # v2_main --sharded from phase 6's days
-P9_FP32_STEPS = 3
+P9_FP32_STEPS = 2
 # 9b's depth: each train batch costs the host ~6.5 s of shared bucketing
 # (rw_bucket.bucket_rw_hits_shared over 26 x 100 columns a sample); 9a's
-# bf16 runs cut to 3 steps for the same reason (and 10a's rwsadagrad runs
-# to 5), to keep the script well inside its time limit on a slow host
+# runs cut to 2 steps for the same reason (and 10a's rwsadagrad runs to 3),
+# to keep the script, phase 13 included, inside its time limit on a slow
+# host
 P9B_LIMITS = {"train": 2, "val": 1, "test": 1}
-P9_BF16_STEPS = 3
+P9_BF16_STEPS = 2
 # the fp32 comparison's (rtol, atol): tables 1e-5 / 1e-6; dense params
 # the port's step tests' (their grads sum 16,384 rows in another order)
 P9_TOL = {"tables": (1e-5, 1e-6), "dense": (1e-4, 1e-5)}
@@ -3500,7 +3534,7 @@ def phase_sharded(root, data_v2):
 # against the single card, 10b the data axis, 10c v2_main --sharded
 # --embedding_impl fused, 10d the v1 trainer's --sharded
 P10_SGD_STEPS = 3
-P10_RWS_STEPS = 5
+P10_RWS_STEPS = 3
 P10B_BATCH = 2048
 P10_PLANS = {
     "table-wise": {"strategy": "table_wise"},
@@ -3675,10 +3709,10 @@ def p10_step_rank(rank, world, staged, refs, data, b, plans, rws,
                   lr=None):
     """10a (10b: data 2 x model 2, batch b, no rwsadagrad run) on one rank:
     for each plan, 3 fp32 SGD steps (at lr, None: p10_lr(b)) compared with
-    the single card's run `refs`, then (rws) 5 rwsadagrad steps with the
-    bf16 tower: losses, launches, each fused kernel's first calls held to
-    its plain version, spans, synchronizing calls, shard_batch's host ms,
-    peak memory."""
+    the single card's run `refs`, then (rws) P10_RWS_STEPS rwsadagrad
+    steps with the bf16 tower: losses, launches, each fused kernel's first
+    calls held to its plain version, spans, synchronizing calls,
+    shard_batch's host ms, peak memory."""
     lr = p10_lr(b) if lr is None else lr
     from dlrm_tpu_torch.parallel.mesh import make_mesh
 
@@ -3724,8 +3758,9 @@ def p10_step_rank(rank, world, staged, refs, data, b, plans, rws,
 
 
 def p10_rws(rank, name, mesh, dev):
-    """10 rwsadagrad steps of the plan with the bf16 tower (fp32 tables, as
-    the fused butterfly keeps them): the figures p10_step_rank lists."""
+    """P10_RWS_STEPS rwsadagrad steps of the plan with the bf16 tower (fp32
+    tables, as the fused butterfly keeps them): the figures p10_step_rank
+    lists."""
     bf = p10_butterfly(name, p9_model("bfloat16"), mesh, dev)
     params = bf.init_params(seed=0)
     st = init_opt_state("rwsadagrad", params)
@@ -4932,6 +4967,339 @@ def phase_tools(root):
     return by_path
 
 
+# ----------------------------------------------------------------- phase 13
+# GspmdDLRM's training half over W = 2 ranks, each step held to the single
+# card's dense step (train/step.py) on the same global batch from the same
+# state. The single card takes the batch in the ranks' two slices
+# (make_grad_accum_train_step: the mean of the slices' mean losses, the
+# global batch's, with the tower's products in the ranks' shapes): in one
+# product of 2,048 rows cuBLAS rounds the tower otherwise, a few samples'
+# cotangents move, and rwsadagrad's row normalization carries that into
+# their rows. That whole-batch step is reported (the rows it moves), as is
+# the single card's own whole-batch run, whose losses are held. From
+# the same state, not from an independent run: element-wise Adagrad (the
+# dense params under rwsadagrad) moves a weight by lr * g / |g|, so a
+# gradient at rounding level, which the ranks sum in another order, moves
+# it by up to lr either way (phase 9), and later steps follow the towers
+# apart.
+P13_TABLES = (20_000,) * 25 + (20_001,)
+P13_BATCH = 2048  # cut from 16,384
+P13_STEPS = 3
+# phase 9's rwsadagrad rate: at 0.01 the fp32 tower's loss jumps past 18
+# on the second step
+P13_LR = 1e-3
+P13_VARIANTS = {
+    "plain": {},
+    "qr": {"qr": QRConfig(collisions=4, threshold=0)},
+    "v_w": {"weighted_pooling": "learned"},
+}
+# (rtol, atol); the dense params' rounding-level elements: see p13_hold
+P13_TOL = {"table": (1e-5, 1e-6), "dense": (1e-4, 1e-5),
+           "acc": (1e-4, 1e-8)}
+# The samples whose rows a step may leave beyond P13_TOL. The ranks sum a
+# pooled bag block by block, so the tower's input differs from the single
+# card's at rounding level, and where one of its ReLUs sits within that
+# rounding of 0 a sample's cotangent moves; rwsadagrad normalizes each
+# row's gradient, so the rows that sample's hits dominate move by a share
+# of lr (205 rows, about one sample's q rows and their accumulators, of the
+# 260,210 at step 2 of the QR run on the card). A fault of the sharding (a
+# block's offset, a lost or doubled hit, a wrong slice) moves thousands.
+P13_FLIP_SAMPLES = 2
+
+
+def p13_model(variant):
+    return DLRMModel(DLRMConfig(
+        embedding_dim=128, table_sizes=P13_TABLES,
+        mlp_bot=(13, 512, 256, 128), mlp_top=(1024, 1024, 512, 256, 1),
+        interaction="dot", loss="bce",
+        num_indices_per_lookup=max(V2_HOT_SIZES), compute_dtype="float32",
+        **P13_VARIANTS[variant]))
+
+
+def p13_batches(model, device):
+    """Phase 13's global batches on `device` (the stacked tables' in the
+    flat per-hit layout, QR's padded)."""
+    hots = V2_HOT_SIZES if model.fused else None
+    return [ragged_multihot_batch(np.random.default_rng(1300 + i), 13,
+                                  P13_TABLES, V2_HOT_SIZES, P13_BATCH)
+            .to_device(device, flat_hots=hots) for i in range(P13_STEPS)]
+
+
+def p13_init(model, device):
+    """(params, rwsadagrad state) from init_params(seed=0) on `device`."""
+    params = model.init_params(seed=0, device=device)
+    return params, init_opt_state("rwsadagrad", params)
+
+
+def p13_rank(rank, world, staged, root):
+    """Each variant's steps on this rank: losses, launches, seconds a step
+    (the unsharding and saving excluded), the padded rows (all 0?); rank 0
+    saves the unsharded params and accumulators after each step under
+    `root`."""
+    from dlrm_tpu_torch.parallel.gspmd import GspmdDLRM, _is_row_shardable
+    from dlrm_tpu_torch.parallel.mesh import make_mesh
+
+    dev = p9_rank_device(rank, staged)
+    mesh = make_mesh(data=1, model=world, stage=staged)
+    out = {}
+    for variant in P13_VARIANTS:
+        model = p13_model(variant)
+        runner = GspmdDLRM(model, mesh, device=dev, hot_sizes=V2_HOT_SIZES)
+        params, state = p13_init(model, dev)
+        shapes = tree_map(lambda t: torch.empty(t.shape, device="meta"),
+                          {"params": params, "accum": state["accum"]})
+        sp = runner.shard_params(params)
+        st = runner.shard_opt_state(state)
+        del params, state
+        step = runner.make_train_step("rwsadagrad")
+        batches = p13_batches(model, "cpu")
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        losses, secs = [], 0.0
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp, st, loss, _ = step(sp, st, runner.shard_batch(b), P13_LR)
+            losses.append(float(loss))
+            secs += time.perf_counter() - t0
+            full = {"params": runner.unshard_params(sp, shapes["params"]),
+                    "accum": runner.unshard_params(st["accum"],
+                                                   shapes["accum"])}
+            if rank == 0:
+                torch.save(full, os.path.join(root, f"p13_{variant}_{i}.pt"))
+            del full
+        launches = dict(LAUNCHES)
+        pads = []
+
+        def pad_rows(path, leaf, t):
+            if _is_row_shardable(path, leaf):
+                n, block = t.shape[0], leaf.shape[0]
+                pad = leaf[max(0, min(block, n - mesh.m * block)):]
+                pads.append((pad.shape[0], bool((pad == 0).all())))
+
+        tree_map_with_path(pad_rows, {"params": sp, "accum": st["accum"]},
+                           shapes)
+        out[variant] = {"losses": losses, "launches": launches,
+                        "secs": secs / P13_STEPS,
+                        "padded": sum(n for n, _ in pads),
+                        "padding_zero": all(z for _, z in pads)}
+        del sp, st, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def p13_independent(variant):
+    """The single card's own 3 steps of the variant from the init, the
+    whole batch at once: losses and final params (on the card)."""
+    model = p13_model(variant)
+    params, state = p13_init(model, CUDA)
+    step = make_train_step(model, "rwsadagrad", hot_sizes=V2_HOT_SIZES)
+    losses = []
+    for b in p13_batches(model, CUDA):
+        params, state, loss, _ = step(params, state, b, P13_LR)
+        losses.append(float(loss))
+    return losses, params
+
+
+def p13_hold(tag, full, params, accum):
+    """{kind: max abs error} of the ranks' unsharded trees against the
+    single card's step, each held to P13_TOL: tables, QR's q and r and v_w
+    ("table"), the other params ("dense"), the accumulators ("acc"); the
+    count of rounding-level elements (an element under element-wise
+    Adagrad whose accumulator stays below 1e-12 has only had gradients at
+    rounding level, which Adagrad divides by themselves: held to |dw| <=
+    lr instead); and the rows of the row-sharded leaves and accumulators
+    beyond P13_TOL, at most the rows the hits of P13_FLIP_SAMPLES samples
+    reach (see there)."""
+    from dlrm_tpu_torch.parallel.gspmd import _is_row_shardable
+
+    errs = {"table": 0.0, "dense": 0.0, "acc": 0.0, "noise": 0,
+            "rows": 0}
+    accs = {}
+    tree_map_with_path(lambda path, a: accs.setdefault(path, a), accum)
+    rows = [0, 0]  # row-sharded rows beyond P13_TOL, row-sharded rows
+
+    def held(kind, got, want, what, keep=None, by_row=False):
+        d = (got.to(want.device) - want).abs()
+        rtol, atol = P13_TOL[kind]
+        bad = d > atol + rtol * want.abs()
+        if keep is not None:
+            bad &= keep
+        errs[kind] = max(errs[kind], float(d.max()) if d.numel() else 0.0)
+        if by_row:
+            rows[0] += int(bad.reshape(bad.shape[0], -1).any(1).sum())
+            rows[1] += bad.shape[0]
+        elif bad.any():
+            j = int(torch.where(bad, d, 0).argmax())
+            check(False, f"{tag}: {what} beyond rtol {rtol} / atol {atol} "
+                  f"of the single card's at {int(bad.sum())} of "
+                  f"{bad.numel()} elements (e.g. "
+                  f"{got.reshape(-1)[j].item()} vs "
+                  f"{want.reshape(-1)[j].item()})")
+        return d
+
+    def param(path, got, want):
+        what = "/".join(map(str, path))
+        table = _is_row_shardable(path, want)
+        kind = "table" if table else "dense"
+        if accs[path].shape != want.shape:  # rwsadagrad's row accumulator
+            held(kind, got, want, what, by_row=table)
+            return
+        noise = accs[path] < 1e-12
+        errs["noise"] += int(noise.sum())
+        d = held(kind, got, want, what, keep=~noise, by_row=table)
+        check(not bool((d[noise] > P13_LR).any()), f"{tag}: {what}'s "
+              "rounding-level elements moved past lr")
+
+    tree_map_with_path(param, full["params"], params)
+    tree_map_with_path(
+        lambda path, g, w: held("acc", g, w, f"accum {path}",
+                                by_row=_is_row_shardable(path, w)),
+        full["accum"], accum)
+    errs["rows"] = rows[0]
+    # a sample's hits reach sum(hots) rows of each row-sharded leaf kind
+    # (the stacked table or a table's w, q, r; v_w), and as many
+    # accumulator rows
+    kinds = len({path[-1] if path[0] == "emb" else path[0]
+                 for path in accs if _is_row_shardable(path, accs[path])})
+    budget = P13_FLIP_SAMPLES * sum(V2_HOT_SIZES) * kinds * 2
+    check(rows[0] <= budget, f"{tag}: {rows[0]} of {rows[1]} rows of the "
+          "tables, v_w and their accumulators beyond rtol / atol of the "
+          f"single card's, more than {P13_FLIP_SAMPLES} samples' hits reach "
+          f"({budget})")
+    return errs
+
+
+def p13_slices(batch, world=2):
+    """The global batch as the ranks' `world` slices, stacked on a leading
+    axis."""
+    from dlrm_tpu_torch.parallel.gspmd import batch_slice
+
+    parts = [batch_slice(batch, m, world, V2_HOT_SIZES)
+             for m in range(world)]
+    return Batch(*(torch.stack(f) for f in zip(*(p[:4] for p in parts))))
+
+
+def p13_apart(full, params):
+    """(rows of the row-sharded leaves beyond P13_TOL["table"], max abs)
+    of the ranks' params against another single-card step's."""
+    from dlrm_tpu_torch.parallel.gspmd import _is_row_shardable
+
+    out = [0, 0.0]
+
+    def visit(path, got, want):
+        if _is_row_shardable(path, want):
+            d = (got.to(want.device) - want).abs()
+            rtol, atol = P13_TOL["table"]
+            bad = (d > atol + rtol * want.abs()).reshape(d.shape[0], -1)
+            out[0] += int(bad.any(1).sum())
+            out[1] = max(out[1], float(d.max()))
+
+    tree_map_with_path(visit, full, params)
+    return tuple(out)
+
+
+def p13_steps_held(variant, root, rank_losses):
+    """Each step of the ranks against the single card's step from the
+    ranks' state before it (the init before the first) on the same batch
+    in the ranks' slices: its loss and the state after it. Also the whole
+    batch at once from the same state, reported. Returns the worst errors
+    over the steps, the state after the last step and the whole batch's
+    (rows apart, max abs) by step."""
+    model = p13_model(variant)
+    step = make_grad_accum_train_step(model, "rwsadagrad", 2,
+                                      hot_sizes=V2_HOT_SIZES)
+    whole = make_train_step(model, "rwsadagrad", hot_sizes=V2_HOT_SIZES)
+    params, state = p13_init(model, CUDA)
+    worst = {"table": 0.0, "dense": 0.0, "acc": 0.0, "noise": 0,
+             "rows": 0}
+    apart = []
+    for i, b in enumerate(p13_batches(model, CUDA)):
+        alone = whole(tree_map(torch.clone, params),
+                      {"step": i, "accum": tree_map(torch.clone,
+                                                    state["accum"])},
+                      b, P13_LR)[0]
+        params, state, loss, _ = step(params, state, p13_slices(b),
+                                      P13_LR)
+        tag = f"phase 13 {variant} step {i}"
+        for r, losses in enumerate(rank_losses):
+            check(math.isclose(losses[i], float(loss), rel_tol=1e-5),
+                  f"{tag}: rank {r}'s loss {losses[i]} vs the single "
+                  f"card's {float(loss)}")
+        full = torch.load(os.path.join(root, f"p13_{variant}_{i}.pt"),
+                          map_location=CUDA)
+        errs = p13_hold(tag, full, params, state["accum"])
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        apart.append(p13_apart(full["params"], alone))
+        del alone
+        params, state["accum"] = full["params"], full["accum"]
+        state["step"] = i + 1
+    return worst, params, apart
+
+
+def phase_gspmd_train(root):
+    """Phase 13: GspmdDLRM's training half over 2 ranks against the single
+    card."""
+    from dlrm_tpu_torch.parallel.launch import start_ranks
+
+    t_phase = time.perf_counter()
+    _, backend, staged = p9_world()
+    world = 2
+    log(f"phase 13: {world} ranks over {backend}"
+        + (" with each collective staged through host memory" if staged
+           else "") + f"; {len(P13_TABLES)} tables x {P13_TABLES[0]:,} rows "
+        f"(cut from 200,000), d 128, batch {P13_BATCH:,} (cut from 16,384), "
+        f"fp32 tower, rwsadagrad lr {P13_LR}, {P13_STEPS} steps a variant")
+    job = start_ranks(p13_rank, world, args=(world, staged, root),
+                      backend=backend)
+    try:
+        alone = {v: p13_independent(v) for v in P13_VARIANTS}
+    except BaseException:
+        job.close()
+        raise
+    ranks = job.wait(timeout_s=600)
+    log(f"phase 13: the ranks done at {time.perf_counter() - t_phase:.1f} s")
+    for variant, (losses, own) in alone.items():
+        rs = [r[variant] for r in ranks]
+        worst, last, apart = p13_steps_held(variant, root,
+                                            [r["losses"] for r in rs])
+        drift = max(float((a - b.to(a.device)).abs().max()) for a, b in zip(
+            tree_leaves(own), tree_leaves(last)))
+        log(f"phase 13 {variant}: rank 0's losses " + " ".join(
+            f"{x:.6f}" for x in rs[0]["losses"]) + "; each step against the "
+            "single card's in the ranks' slices from the same state, max "
+            "abs: tables, q, r, v_w "
+            f"{worst['table']:.3e} (rows beyond rtol / atol: at most "
+            f"{worst['rows']} a step), dense {worst['dense']:.3e} "
+            f"(rounding-level elements, held to lr: at most "
+            f"{worst['noise']} a step), accumulators "
+            f"{worst['acc']:.3e}; the single card's step on the whole "
+            "batch at once from the same state (not held): rows of the "
+            "tables, q, r, v_w beyond rtol / atol by step "
+            f"{[a[0] for a in apart]}, max abs "
+            + ", ".join(f"{a[1]:.3e}" for a in apart)
+            + "; the single card's own run, the whole batch at once: "
+            "losses "
+            + " ".join(f"{x:.6f}" for x in losses) + f", params "
+            f"{drift:.3e} from the ranks' after {P13_STEPS} steps (not "
+            "held); padded rows by rank "
+            f"{[r['padded'] for r in rs]}, all 0; s a step by rank "
+            + ", ".join(f"{r['secs']:.3f}" for r in rs)
+            + "; launches of the port's kernels: none")
+        for i, r in enumerate(rs):
+            check(np.allclose(r["losses"], losses, rtol=1e-5, atol=0),
+                  f"phase 13 {variant}: rank {i} losses {r['losses']} vs "
+                  f"the single card's own run's {losses}")
+            check(r["padding_zero"], f"phase 13 {variant}: rank {i}'s "
+                  "padded rows moved")
+            launched = {k: v for k, v in r["launches"].items() if v}
+            check(not launched, f"phase 13 {variant}: rank {i} launched "
+                  f"{launched}")
+        del own, last
+        torch.cuda.empty_cache()
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
 def tools_only():
     """`python3 chip_smoke.py --tools`: the build, then phase 12 alone; no
     "ok" line is printed."""
@@ -5073,6 +5441,7 @@ def main() -> int:
             fused_sharded = phase_fused_sharded(tmp, data_v2)
             phase_serving(tmp)
             tools = phase_tools(tmp)
+            phase_gspmd_train(tmp)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,6 +1,7 @@
 """Sum-pooled multi-hot embedding lookups (the port of dlrm_tpu/ops/
 embedding.py's embedding_bag, fused_embedding_bag, qr_embedding_bag,
-flat_hit_offsets and grouped_embedding_bag).
+flat_hit_offsets and grouped_embedding_bag, and copies of its host helpers
+stack_tables, offsets_to_padded and padded_to_offsets).
 
 All equal-width tables live in one stacked [rows, d] array; per-table row
 offsets are added to the table-local indices, and every bag of every table
@@ -23,6 +24,73 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def stack_tables(
+    tables: Sequence[np.ndarray],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Stack equal-width tables into one array; return (stacked,
+    row_offsets)."""
+    dims = {t.shape[1] for t in tables}
+    if len(dims) != 1:
+        raise ValueError(f"stack_tables requires equal widths, got {dims}")
+    offsets = np.zeros(len(tables), dtype=np.int32)
+    acc = 0
+    for i, t in enumerate(tables):
+        offsets[i] = acc
+        acc += t.shape[0]
+    return np.concatenate(tables, axis=0), offsets
+
+
+def offsets_to_padded(
+    indices: np.ndarray,  # [nnz] one table's batch, flat (CSR values)
+    offsets: np.ndarray,  # [B] bag start offsets (CSR indptr without the end)
+    hot_size: int,
+    per_sample_weights: Optional[np.ndarray] = None,  # [nnz]
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side conversion from the reference's ragged (indices, offsets)
+    CSR format (dlrm_s_pytorch.py:407-414) to the padded (idx[B,H], wt[B,H])
+    layout. Bags longer than hot_size are truncated (the caller picks H =
+    max bag len to avoid that); padding gets index 0 with weight 0."""
+    indices = np.asarray(indices, dtype=np.int64)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    batch = offsets.shape[0]
+    ends = np.concatenate([offsets[1:], [indices.shape[0]]])
+    idx = np.zeros((batch, hot_size), dtype=np.int32)
+    wt = np.zeros((batch, hot_size), dtype=np.float32)
+    for b in range(batch):
+        lo, hi = offsets[b], ends[b]
+        ln = min(hi - lo, hot_size)
+        idx[b, :ln] = indices[lo: lo + ln]
+        if per_sample_weights is None:
+            wt[b, :ln] = 1.0
+        else:
+            wt[b, :ln] = per_sample_weights[lo: lo + ln]
+    return idx, wt
+
+
+def padded_to_offsets(
+    idx: np.ndarray, wt: np.ndarray,
+    lengths: Optional[np.ndarray] = None,  # [B] true bag lengths
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Inverse of offsets_to_padded. Without `lengths`, padding is inferred
+    as wt == 0, which also drops GENUINE zero per-sample weights
+    (indistinguishable in this layout); pass the true bag lengths to
+    round-trip weighted bags faithfully."""
+    batch = idx.shape[0]
+    offsets = np.zeros(batch, dtype=np.int64)
+    out = []
+    acc = 0
+    for b in range(batch):
+        if lengths is not None:
+            ln = int(lengths[b])
+            keep = idx[b][:ln]
+        else:
+            keep = idx[b][wt[b] != 0.0]
+        offsets[b] = acc
+        out.extend(keep.tolist())
+        acc += len(keep)
+    return np.asarray(out, dtype=np.int64), offsets
 
 
 def flat_hit_offsets(hot_sizes: Sequence[int], batch: int):

@@ -43,6 +43,22 @@ def tree_map_with_path(fn: Callable, tree, *rest, path=()):
     return fn(path, tree, *rest)
 
 
+def path_keys(path) -> list:
+    """Dict keys / sequence indices along a tree path: the entries of a
+    path of tree_map_with_path as they are, and the .key / .idx of a JAX
+    key path's entries (its other entries dropped), as the JAX package's
+    path_keys reads them."""
+    keys = []
+    for p in path:
+        if hasattr(p, "key"):
+            keys.append(p.key)
+        elif hasattr(p, "idx"):
+            keys.append(p.idx)
+        elif isinstance(p, (str, int)):
+            keys.append(p)
+    return keys
+
+
 def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)

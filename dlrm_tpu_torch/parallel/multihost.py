@@ -15,16 +15,23 @@ init_method (a file:// store, as the tests use). The backend is an explicit
 argument: NCCL for ranks on CUDA cards, gloo on the CPU; gloo with CUDA
 tensors (several ranks sharing one card, which NCCL refuses) is the
 caller's choice, and then the collectives stage through host memory
-(collectives.Axis). The JAX global_batch_from_* helpers have no
-counterpart: each rank builds its own pieces of a batch
-(StreamButterfly.shard_batch).
+(collectives.Axis).
+
+The two input patterns of the JAX package's global_batch_from_* helpers,
+with a rank holding what its device holds of a sharded array:
+global_batch_from_replicated (every rank holds the whole global batch)
+slices out this rank's shard of each field, with no collective;
+global_batch_from_local_shard (every rank holds its own slice) all-gathers
+the slices into the global batch on every rank. A field's spec is JAX's
+PartitionSpec as a tuple: entry k names the mesh axis (or tuple of axes,
+the first major) that dim k is split over, or None.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -112,3 +119,82 @@ def barrier() -> None:
 def process_local_rank_stride(num_batches: int) -> range:
     """Batch indices this rank loads under round-robin assignment."""
     return range(rank(), num_batches, world_size())
+
+
+def spec_axis(mesh, entry):
+    """The collectives.Axis of a PartitionSpec entry over a
+    parallel/mesh.py RankMesh: "data", "model", or a tuple of both (its
+    members in the entry's order, the first name major: ("data", "model")
+    is the batch order, member d * model + m)."""
+    from dlrm_tpu_torch.parallel.collectives import Axis
+
+    names = (entry,) if isinstance(entry, str) else tuple(entry)
+    if names == ("data",):
+        return mesh.data_axis
+    if names == ("model",):
+        return mesh.model_axis
+    if sorted(names) != ["data", "model"]:
+        raise ValueError(f"no mesh axis {entry!r}")
+    grid = mesh.grid if names[0] == "data" else mesh.grid.T
+    ranks = [int(r) for r in grid.reshape(-1)]
+    if len(ranks) == 1:
+        return Axis(None, ranks, 0)
+    import torch.distributed as dist
+
+    return Axis(dist.group.WORLD, ranks, ranks.index(mesh.rank),
+                mesh.model_axis.stage)
+
+
+def _fields(batch, specs: Sequence, fn, device):
+    from dlrm_tpu_torch.data.batch import Batch
+
+    def put(x, spec):
+        if x is None:
+            return None
+        x = fn(x, spec)
+        return x if device is None else x.to(device)
+
+    return Batch(*(put(x, s) for x, s in zip(
+        (batch.dense, batch.idx, batch.wt, batch.labels), specs)),
+        stream=batch.stream)
+
+
+def global_batch_from_replicated(mesh, batch, specs: Sequence, device=None):
+    """Every rank holds the FULL global batch (the v1 pattern): this rank's
+    shard of each field under its spec (dense, idx, wt, labels; the stream
+    plan, replicated, as it is), cut out locally with no collective, on
+    `device` (None: where the batch lies)."""
+
+    def shard(x, spec):
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            ax = spec_axis(mesh, entry)
+            if x.shape[dim] % ax.size:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                                 f"split over {ax.size} ranks")
+            n = x.shape[dim] // ax.size
+            x = x.narrow(dim, ax.index * n, n)
+        return x
+
+    return _fields(batch, specs, shard, device)
+
+
+def global_batch_from_local_shard(mesh, local, specs: Sequence, device=None):
+    """Every rank holds only its slice of the global batch (the v2
+    rank-strided pattern): the global batch on every rank, each field's
+    slices all-gathered over its spec's axes (a collective every rank
+    makes), on `device` (None: where the slices lie)."""
+
+    def gather(x, spec):
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            ax = spec_axis(mesh, entry)
+            g = ax.all_gather(x.contiguous()).movedim(0, dim)
+            shape = list(x.shape)
+            shape[dim] *= ax.size
+            x = g.reshape(shape)
+        return x
+
+    return _fields(local, specs, gather, device)
