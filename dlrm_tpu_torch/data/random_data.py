@@ -65,12 +65,20 @@ class HostBatch:
         instead of padded [T, B, Hmax], so only real hits cross the bus.
         On CUDA every array goes through pinned host memory with a
         non_blocking copy on the current stream, so the host can build the
-        next batch while the device works. Only this method needs torch:
-        the day parsers' worker processes import this module without it."""
+        next batch while the device works. Only this method (with the
+        body, _to_device) needs torch: the day parsers' worker processes
+        import this module without it."""
+        from dlrm_tpu_torch.utils import profiling as prof
+
+        with prof.scope(prof.TO_DEVICE):
+            return self._to_device(device, flat_hots)
+
+    def _to_device(self, device, flat_hots) -> Batch:
         import torch
 
         from dlrm_tpu_torch.data.batch import Batch, StreamArrays
         from dlrm_tpu_torch.device import resolve_device
+        from dlrm_tpu_torch.utils import profiling as prof
 
         dev = resolve_device(device)
         idx, wt = self.idx, self.wt
@@ -105,9 +113,13 @@ class HostBatch:
             if not arr.flags.writeable:  # a read-only memmap slice
                 arr = arr.copy()
             t = torch.from_numpy(np.ascontiguousarray(arr))
-            if dev.type == "cuda":
-                return t.pin_memory().to(dev, non_blocking=True)
-            return t.clone()
+            if dev.type != "cuda":
+                return t.clone()
+            with prof.scope(prof.TO_DEVICE_PIN):
+                prof.count(prof.TO_DEVICE_BYTES, t.nbytes)
+                pinned = t.pin_memory()
+            with prof.scope(prof.TO_DEVICE_H2D):
+                return pinned.to(dev, non_blocking=True)
 
         stream = None
         if self.stream is not None:

@@ -511,11 +511,13 @@ class DLRMModel:
         with torch.enable_grad():
             probs, logits = self.forward_from_pooled(leaves, batch.dense,
                                                      pooled)
-            loss = masked_mean(
-                per_example_loss(self.cfg, probs, batch.labels, logits),
-                batch.labels, denom=denom)
-            *grads, dly = torch.autograd.grad(
-                loss, tree_leaves(leaves) + [pooled])
+            with prof.scope(prof.LOSS):
+                loss = masked_mean(
+                    per_example_loss(self.cfg, probs, batch.labels, logits),
+                    batch.labels, denom=denom)
+            with prof.scope(prof.BWD):
+                *grads, dly = torch.autograd.grad(
+                    loss, tree_leaves(leaves) + [pooled])
         it = iter(grads)
         return (loss.detach(), probs.detach(),
                 tree_map(lambda _: next(it), leaves), dly)
@@ -523,9 +525,10 @@ class DLRMModel:
     def apply_with_logits(self, params: Params, batch: Batch,
                           hot_sizes: Optional[Sequence[int]] = None):
         """Full forward pass -> (click probability [B, 1], fp32 logits)."""
-        with prof.scope(prof.EMB_FWD):
-            ly = self.apply_emb(params, batch, hot_sizes)
-        return self.forward_from_pooled(params, batch.dense, ly)
+        with prof.scope(prof.FWD):
+            with prof.scope(prof.EMB_FWD):
+                ly = self.apply_emb(params, batch, hot_sizes)
+            return self.forward_from_pooled(params, batch.dense, ly)
 
     def apply(self, params: Params, batch: Batch,
               hot_sizes: Optional[Sequence[int]] = None) -> torch.Tensor:

@@ -25,6 +25,7 @@ from typing import Callable, Iterable, Iterator
 import torch
 
 from dlrm_tpu_torch.device import resolve_device
+from dlrm_tpu_torch.utils import profiling as prof
 
 
 def _tensors(x):
@@ -120,7 +121,8 @@ class DevicePrefetcher:
         done = False
         try:
             while True:
-                item = q.get()
+                with prof.scope(prof.PREFETCH_WAIT):
+                    item = q.get()
                 if item is self._DONE:
                     done = True
                     break

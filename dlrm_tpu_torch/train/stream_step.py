@@ -14,6 +14,10 @@ One train step:
      window_grads; "gather": gather_grads) and K2 stream_update.
 G_u and K3's rows R_u are held in g_dtype (fp32, or bf16: half the bytes,
 each element rounded once to the nearest bf16), as in the JAX step.
+While utils/profiling.py's profile() traces, steps 1-4 are its spans
+EMB_FWD, LOSS and BWD (in grads_from_pooled), "DLRM dense update",
+"DLRM table grads" (timed on the card by two CUDA events) and "DLRM
+table update".
 
 Under weighted pooling (cfg.weighted_pooling, the per-row weights v_w in
 the padded row layout) the forward must be the gather, with v_w folded into
@@ -67,6 +71,7 @@ from dlrm_tpu_torch.optim.optimizers import (
     apply_updates,
     init_dense_state,
 )
+from dlrm_tpu_torch.utils import profiling as prof
 
 
 def _check_plain(model: DLRMModel) -> None:
@@ -205,7 +210,9 @@ def make_stream_train_step(
             "as the JAX step does (K3/K4 pool with the host-built slot "
             "weights, which do not carry v_w)")
     eps = ADAGRAD_EPS if eps is None else float(eps)
-    offsets = _offsets(plan, resolve_device(device))
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    offsets = _offsets(plan, dev)
 
     def train_step(params, opt_state, batch: Batch, lr: float):
         sw = batch.stream
@@ -221,7 +228,7 @@ def make_stream_train_step(
             wts_u = (sw.rows_u != SENTINEL_ROW).float()
         dense = {k: v for k, v in params.items() if k != "emb"}
         b = batch.dense.shape[0]
-        with torch.no_grad():
+        with torch.no_grad(), prof.scope(prof.EMB_FWD):
             pooled = _pooled(params, batch, sw, wts_u, b)
         loss, probs, grads, dly = model.grads_from_pooled(
             {k: v for k, v in dense.items() if k != "v_w"}, batch, pooled)
@@ -239,21 +246,26 @@ def make_stream_train_step(
             accum = opt_state.get("accum")
             dense_accum = (None if accum is None else
                            {k: v for k, v in accum.items() if k != "emb"})
-            apply_updates(optimizer, dense, grads, dense_accum, lr, eps=eps)
+            with prof.scope(prof.DENSE_UPDATE):
+                apply_updates(optimizer, dense, grads, dense_accum, lr,
+                              eps=eps)
             dly_t = dly.transpose(0, 1)  # [T, B, d] view, no copy
-            if grad_impl == "onehot":
-                g_u = window_grads(dly_t, sw.vals_u, wts_u, sw.w2t,
-                                   out_dtype=g_dtype, mm_dtype=mm_dtype)
-            else:
-                g_u = gather_grads(dly_t, sw.vals_u, wts_u, sw.w2t,
-                                   out_dtype=g_dtype)
-            stream_update(
-                optimizer, plan, emb,
-                None if accum is None else accum["emb"]["stacked"],
-                g_u, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u, lr,
-                mm_dtype=mm_dtype, eps=eps,
-                stochastic_round=stochastic_round, seed=opt_state["step"],
-            )
+            with prof.scope(prof.TABLE_GRADS, device=on_card):
+                if grad_impl == "onehot":
+                    g_u = window_grads(dly_t, sw.vals_u, wts_u, sw.w2t,
+                                       out_dtype=g_dtype, mm_dtype=mm_dtype)
+                else:
+                    g_u = gather_grads(dly_t, sw.vals_u, wts_u, sw.w2t,
+                                       out_dtype=g_dtype)
+            with prof.scope(prof.TABLE_UPDATE):
+                stream_update(
+                    optimizer, plan, emb,
+                    None if accum is None else accum["emb"]["stacked"],
+                    g_u, sw.rows_u, sw.item_block, sw.item_row0, sw.item_u,
+                    lr, mm_dtype=mm_dtype, eps=eps,
+                    stochastic_round=stochastic_round,
+                    seed=opt_state["step"],
+                )
         opt_state["step"] += 1
         return params, opt_state, loss, probs
 
