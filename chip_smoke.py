@@ -30,9 +30,10 @@ Phases (any failure exits non-zero, and "ok" is printed only when all pass):
      touched-only item list (which must also give the full list's bits), a
      row with 2,048 hits whose run spans several items, three one-block
      tables whose last and first rows coincide across each segment boundary,
-     and a skewed batch with one row of 20,480 hits (K2 timed on it and on
-     the plain batch); on the full, touched-only and long-run lists also
-     with G_u in bf16 (the step's g_dtype). 72 cases.
+     a skewed batch with one row of 20,480 hits and, at batch 16,384 on the
+     touched-only list, one row of 262,144 hits as in the pareto cell (K2
+     timed on both and on the plain batch); on the full, touched-only and
+     long-run lists also with G_u in bf16 (the step's g_dtype). 81 cases.
   2b. K1, K3 and K4 against their plain versions, bit for bit, on the same
      plan and the full item list, each with its intermediate (G_u, R_u) in
      fp32 and in bf16: K1 with mm_dtype fp32 / bf16, unit / random weights
@@ -387,6 +388,7 @@ from dlrm_tpu_torch.ops.stream_kernels import (
     window_pool_plain,
 )
 from dlrm_tpu_torch.ops.stream_plan import (
+    K2_CHUNK,
     SENTINEL_ROW,
     build_stream_work,
     make_stream_plan,
@@ -533,24 +535,29 @@ def phase_k2_vs_plain():
     """K2 against its plain version, bit for bit: every optimizer, table
     type and rounding on the mid-size plan's full and touched-only lists,
     on a row whose run spans several items, on equal rows across table
-    boundaries, and on one skewed row with 20,480 hits (timed)."""
+    boundaries, on one skewed row with 20,480 hits and, at batch 16,384, on
+    one row with 262,144 hits as in the pareto cell (both timed)."""
     tables, hots, b, d = MID_TABLES, MID_HOTS, MID_B, 128
     plan = make_stream_plan(tables, d, b, hots, block_rows=2048)
+    pplan = make_stream_plan(tables, d, BATCH, hots, block_rows=2048)
 
-    def mid(rng_seed, edit=None, touched=False):
+    def mid(rng_seed, edit=None, touched=False, pl=plan):
         hb = ragged_multihot_batch(np.random.default_rng(rng_seed), 13,
-                                   tables, hots, b)
+                                   tables, hots, pl.batch)
         if edit is not None:
             edit(hb.idx)
         hb = dataclasses.replace(hb, wt=None).with_stream_work(
-            plan, unit_weights=True, update_touched_only=touched)
-        return hb.to_device(CUDA, flat_hots=plan.hot).stream
+            pl, unit_weights=True, update_touched_only=touched)
+        return hb.to_device(CUDA, flat_hots=pl.hot).stream
 
     def long_run(idx):  # 2,048 hits of row 7 of table 0: 8 items' worth
         idx[0, :, 0] = 7
 
     def skew(idx):  # 20,480 hits of row 11 of table 2 (hot 20)
         idx[2, :, :10] = 11
+
+    def pareto_row(idx):  # 262,144 hits of row 11 of table 2 at 16,384
+        idx[2, :, :16] = 11
 
     bplan, bsw = boundary_work()
     lists = {
@@ -559,20 +566,30 @@ def phase_k2_vs_plain():
         "long run": (plan, mid(1, long_run)),
         "skewed": (plan, mid(1, skew)),
         "boundary": (bplan, bsw),
+        "pareto row": (pplan, mid(1, pareto_row, True, pplan)),
     }
     hot_hits = int((lists["skewed"][1].rows_u.reshape(-1)[
         plan.u_base[2]:plan.u_base[3]] == 11).sum())
     check(hot_hits == 20 * b // 2, f"skewed plan: {hot_hits} hits of row 11")
+    psw = lists["pareto row"][1]
+    pareto_hits = int((psw.rows_u.reshape(-1)[
+        pplan.u_base[2]:pplan.u_base[3]] == 11).sum())
+    check(pareto_hits >= 16 * BATCH and psw.long_hits >= pareto_hits
+          and psw.long_runs >= 1,
+          f"pareto-row plan: {pareto_hits} hits of row 11, "
+          f"{psw.long_runs} long runs")
     log(f"phase 2: plan {len(tables)} tables, {plan.padded_rows} padded rows, "
         f"u_total {plan.u_total}, items {plan.max_items}; touched list "
         f"{lists['touched'][1].item_block.lt(plan.num_blocks).sum()} of "
         f"{lists['full'][1].item_block.lt(plan.num_blocks).sum()} real items; "
         f"long run 2048 hits, skewed row {hot_hits} hits; boundary plan "
-        f"{bplan.table_sizes}")
+        f"{bplan.table_sizes}; at batch {BATCH} a row of {pareto_hits} hits "
+        f"({psw.long_runs} runs of more than {K2_CHUNK} hits, "
+        f"{psw.long_hits} of {psw.hits} hits)")
     gen = torch.Generator(device=CUDA)
     gen.manual_seed(2)
     inputs = {}  # per plan: dly, the fp32 table, each optimizer's acc
-    for pl in (plan, bplan):
+    for pl in (plan, bplan, pplan):
         dly = torch.randn((len(pl.table_sizes), pl.batch, d), generator=gen,
                           device=CUDA).to(torch.bfloat16)
         base32 = torch.randn((pl.padded_rows, d), generator=gen,
@@ -619,7 +636,7 @@ def phase_k2_vs_plain():
                     cases.append(name)
                     kernel_tables[name] = t_k
                     if (opt == "rwsadagrad" and sr
-                            and lname in ("full", "skewed")):
+                            and lname in ("full", "skewed", "pareto row")):
                         t_t, a_t = t_k.clone(), a_k.clone()
                         timed[lname + gtag] = time_ms(lambda: stream_update(
                             opt, pl, t_t, a_t, *args, **kw), CUDA, 10)
@@ -635,8 +652,9 @@ def phase_k2_vs_plain():
         "bit-identical to the plain version")
     log(f"phase 2: K2 rwsadagrad/bf16/sr on the mid-size full list "
         f"{timed['full']:.3f} ms (bf16 G_u {timed['full/g=bf16']:.3f} ms); "
-        f"with one row of {hot_hits} hits (summed serially by one warp) "
-        f"{timed['skewed']:.3f} ms")
+        f"with one row of {hot_hits} hits {timed['skewed']:.3f} ms; at "
+        f"batch {BATCH} with one row of {pareto_hits} hits (touched-only "
+        f"list) {timed['pareto row']:.3f} ms")
 
 
 def overrun_items(plan, sw):

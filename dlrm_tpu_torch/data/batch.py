@@ -29,6 +29,11 @@ class StreamArrays(NamedTuple):
     # host-side: the item list is the touched-only one (no cover items), so
     # it serves K2 but not the streamed forward, which must write every slot
     touched_only: bool = False
+    # host-side: build_stream_work's counts of the hits placed, and of the
+    # runs of more than K2_CHUNK hits of one row with their hits
+    hits: int = 0
+    long_runs: int = 0
+    long_hits: int = 0
 
 
 class Batch(NamedTuple):

@@ -133,6 +133,9 @@ class HostBatch:
                 item_row0=put(w.item_row0),
                 item_u=put(w.item_u),
                 touched_only=w.touched_only,
+                hits=w.hits,
+                long_runs=w.long_runs,
+                long_hits=w.long_hits,
             )
         return Batch(
             dense=put(self.dense),

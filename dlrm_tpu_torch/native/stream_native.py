@@ -49,8 +49,10 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32,  # write_wts
+        ctypes.c_int32,  # long_run
         _I32P, _I32P, _F32P, _I32P,
         _I32P, _I32P, _I32P,
+        ctypes.POINTER(ctypes.c_int64),  # stats
     ]
     return lib
 
@@ -64,7 +66,7 @@ def build_stream_work_native(plan, idx: np.ndarray,
                              skip_wts: bool = False):
     """Native twin of ops/stream_plan.build_stream_work. Returns a
     StreamWork (imported lazily to avoid a circular import)."""
-    from dlrm_tpu_torch.ops.stream_plan import StreamWork
+    from dlrm_tpu_torch.ops.stream_plan import K2_CHUNK, StreamWork
 
     lib = _load()
     if lib is None:
@@ -113,6 +115,7 @@ def build_stream_work_native(plan, idx: np.ndarray,
     item_block = np.empty(m, dtype=np.int32)
     item_row0 = np.empty(m, dtype=np.int32)
     item_u = np.empty(m, dtype=np.int32)
+    stats = np.zeros(3, dtype=np.int64)
 
     n = lib.build_stream_work_native(
         idx.ctypes.data_as(_I32P),
@@ -129,6 +132,7 @@ def build_stream_work_native(plan, idx: np.ndarray,
         plan.u_size, plan.u_total, plan.num_blocks,
         m, plan.num_windows,
         0 if skip_wts else 1,
+        K2_CHUNK,
         rows_u.ctypes.data_as(_I32P),
         vals_u.ctypes.data_as(_I32P),
         None if skip_wts else wts_u.ctypes.data_as(_F32P),
@@ -136,6 +140,7 @@ def build_stream_work_native(plan, idx: np.ndarray,
         item_block.ctypes.data_as(_I32P),
         item_row0.ctypes.data_as(_I32P),
         item_u.ctypes.data_as(_I32P),
+        stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
     )
     if n <= -100:
         t_over = int(-n) - 100
@@ -154,4 +159,7 @@ def build_stream_work_native(plan, idx: np.ndarray,
         item_row0=item_row0,
         item_u=item_u,
         num_real_items=int(n),
+        hits=int(stats[0]),
+        long_runs=int(stats[1]),
+        long_hits=int(stats[2]),
     )

@@ -10,7 +10,9 @@
 // all hits of one row are one contiguous run of slots, which one warp owns.
 // Counting sorts throughout (by block, then within each block's run by
 // row, in cache), parallel across tables: this is the input-pipeline stage
-// that must keep ahead of the device step.
+// that must keep ahead of the device step. On the way it counts the hits it
+// places and the rows with more than long_run of them (K2 sums those runs
+// in chunks; the numpy path counts the same).
 //
 // C ABI for ctypes. Built with g++ at first use by
 // dlrm_tpu_torch/native/stream_native.py.
@@ -72,8 +74,10 @@ int64_t build_stream_work_native(
     int32_t max_items, int32_t num_windows,
     int32_t write_wts,  // 0: skip wts_u entirely (may be null) — callers
                         // with unit weights derive it on device from rows_u
+    int32_t long_run,   // a row's run of more than long_run hits is long
     int32_t* rows_u, int32_t* vals_u, float* wts_u, int32_t* w2t,
-    int32_t* item_block, int32_t* item_row0, int32_t* item_u) {
+    int32_t* item_block, int32_t* item_row0, int32_t* item_u,
+    int64_t* stats) {  // out [3]: hits placed, long runs, their hits
   const int32_t sent_u = u_size;  // first slot of trailing sentinel window
   const int32_t pad_block = num_blocks;
 
@@ -86,7 +90,7 @@ int64_t build_stream_work_native(
     std::memset(wts_u + u_size, 0, sizeof(float) * (u_total - u_size));
   std::fill(w2t, w2t + num_windows, t_ - 1);
 
-  std::atomic<int64_t> err{0};
+  std::atomic<int64_t> err{0}, hits{0}, long_runs{0}, long_hits{0};
   std::vector<std::vector<Item>> items(t_);
   std::vector<std::vector<Run>> runs(t_);
   std::vector<int32_t> useg_end(t_);
@@ -132,6 +136,7 @@ int64_t build_stream_work_native(
         err.store(100 + t);
         return;
       }
+      hits += kept;
 
       // per-block run starts (each run padded to a multiple of 128)
       cursor.assign(nb, 0);
@@ -218,9 +223,13 @@ int64_t build_stream_work_native(
       row_pos.assign(block_rows + 1, 0);
       for (int32_t s = lo; s < lo + n; ++s) row_pos[key(rows_u[s])]++;
       int32_t pos = 0;
-      for (int32_t& c : row_pos) {
-        const int32_t m = c;
-        c = pos;
+      for (int32_t k = 0; k <= block_rows; ++k) {
+        const int32_t m = row_pos[k];
+        if (m > long_run && k < block_rows) {  // not the malformed rows
+          ++long_runs;
+          long_hits += m;
+        }
+        row_pos[k] = pos;
         pos += m;
       }
       tmp_rows.assign(rows_u + lo, rows_u + lo + n);
@@ -265,6 +274,9 @@ int64_t build_stream_work_native(
     item_row0[n] = 0;
     item_u[n] = sent_u;
   }
+  stats[0] = hits.load();
+  stats[1] = long_runs.load();
+  stats[2] = long_hits.load();
   return real;
 }
 

@@ -11,7 +11,8 @@ dlrm_tpu/ops/stream_kernels.py: gather_grads and the four Pallas kernels).
                         the sgd, row-wise Adagrad or Adagrad update to the
                         block's rows IN PLACE (the JAX kernel aliases table
                         and accumulator, dlrm_tpu/ops/stream_kernels.py:
-                        517/548/573).
+                        517/548/573). A row of more than K2_CHUNK hits is
+                        summed as chunks of K2_CHUNK, then the chunks' sums.
   K3 stream_rows        R_u [U, d]: every slot's table row (0 at sentinels),
                         the first half of the streamed forward.
   K4 window_pool        pooled [T, B, d] = the weighted sum of each bag's
@@ -52,6 +53,7 @@ import torch
 from dlrm_tpu_torch.buildlib import build_shared
 from dlrm_tpu_torch.ops.stream_plan import (
     CHUNK,
+    K2_CHUNK,
     SENTINEL_ROW,
     WINDOW,
     StreamPlan,
@@ -133,20 +135,49 @@ def cast_out(val: torch.Tensor, dtype, sr: bool, seed: int,
 
 
 # ------------------------------------------------------------- plain K2
+def _ranks(index: torch.Tensor) -> torch.Tensor:
+    """rank[i]: how many j < i have index[j] == index[i]."""
+    order = torch.argsort(index, stable=True)
+    counts = torch.bincount(index)
+    rank = torch.empty_like(index)
+    rank[order] = (torch.arange(index.numel(), device=index.device)
+                   - (torch.cumsum(counts, 0) - counts)[index[order]])
+    return rank
+
+
 def _add_in_rounds(out, index, src) -> None:
     """out[index[i]] += src[i], each row of out taking its terms in the
     order of i: round k adds every row's k-th term. Within a round the
     indices are distinct, so index_add_ adds each row once, with no
     conflicting writes: the same bits on every run and device."""
-    order = torch.argsort(index, stable=True)
-    counts = torch.bincount(index, minlength=out.shape[0])
-    rank = torch.empty_like(index)
-    rank[order] = (torch.arange(index.numel(), device=index.device)
-                   - (torch.cumsum(counts, 0) - counts)[index[order]])
+    rank = _ranks(index)
     by_round = torch.argsort(rank, stable=True)
     sizes = torch.bincount(rank).tolist() if rank.numel() else []
     for sel in torch.split(by_round, sizes):
         out.index_add_(0, index[sel], src[sel])
+
+
+def _k2_sums(g: torch.Tensor, inv: torch.Tensor, n: int) -> torch.Tensor:
+    """Gsum [n, d] fp32 of the hits' rows g (in slot order) by their row
+    inv, in K2's order: a row of up to K2_CHUNK hits from zero in slot
+    order; a longer one as chunks of K2_CHUNK hits from its first, each
+    summed from zero in slot order, then the chunks' sums from zero in
+    chunk order. So a row costs at most K2_CHUNK rounds of index_add_ and
+    one a chunk, not one a hit."""
+    gs = torch.zeros((n, g.shape[1]), dtype=torch.float32, device=g.device)
+    counts = torch.bincount(inv, minlength=n)
+    long = counts[inv] > K2_CHUNK
+    _add_in_rounds(gs, inv[~long], g[~long])
+    if bool(long.any()):
+        inv_l = inv[long]
+        per_row = int(counts.max()) // K2_CHUNK + 1  # chunks a row, at most
+        key = inv_l * per_row + _ranks(inv_l) // K2_CHUNK
+        chunks, chunk_of = torch.unique(key, return_inverse=True)
+        part = torch.zeros((chunks.numel(), g.shape[1]), dtype=torch.float32,
+                           device=g.device)
+        _add_in_rounds(part, chunk_of, g[long])
+        _add_in_rounds(gs, chunks // per_row, part)  # in chunk order
+    return gs
 
 
 def _warp_sum(x: torch.Tensor) -> torch.Tensor:
@@ -179,10 +210,11 @@ def stream_update_plain(
     place.
 
     The sums are taken in the kernel's order, so that on the card the two
-    agree to the bit: each row's hits are added in slot order from zero
-    (round k adds every row's k-th hit; rows are unique within a round, so
-    index_add_ meets no conflicting writes), and rwsadagrad's sum over d
-    follows the kernel's warp (_warp_sum)."""
+    agree to the bit: each row's hits in slot order (_k2_sums: from zero,
+    or in chunks of K2_CHUNK for a longer row; round k adds every row's
+    k-th term, and rows are unique within a round, so index_add_ meets no
+    conflicting writes), and rwsadagrad's sum over d follows the kernel's
+    warp (_warp_sum)."""
     br = plan.block_rows
     d = table.shape[1]
     dev = table.device
@@ -193,12 +225,12 @@ def stream_update_plain(
     r = rows_u.reshape(-1).long()[slots]
     keep = ((blk < plan.num_blocks) & (r != SENTINEL_ROW)
             & (r >= row0) & (r < row0 + br))
-    grow = (blk * br + r - row0)[keep]
-    g = g_u[slots[keep]]
-    g = _mm(g, mm_dtype)  # a bf16 G_u is widened: index_add_ takes one dtype
+    # each slot lies in one item of its block, whatever the items' order
+    kept, order = torch.sort(slots[keep])
+    grow = (blk * br + r - row0)[keep][order]
+    g = _mm(g_u[kept], mm_dtype)  # a bf16 G_u is widened: one dtype
     rows, inv = torch.unique(grow, return_inverse=True)
-    gs = torch.zeros((rows.numel(), d), dtype=torch.float32, device=dev)
-    _add_in_rounds(gs, inv, g)
+    gs = _k2_sums(g, inv, rows.numel())
     w = table[rows].float()
     sr = bool(stochastic_round) and table.dtype == torch.bfloat16
     if optimizer == "sgd":
@@ -246,6 +278,7 @@ _ENTRY_POINTS = {
         _I, _I, _I,  # num_blocks, br, d
         ctypes.c_float, ctypes.c_float, ctypes.c_uint32,  # lr, eps, seed
         _I, _I,  # mm_bf16, sr
+        _P, _P,  # scratch: the long runs' int32 arrays, their partials
         _P,  # stream
     ]),
     "stream_rows": ("stream_rows", "k3_stream_rows", [
@@ -375,6 +408,16 @@ def _mm(x: torch.Tensor, mm_dtype) -> torch.Tensor:
     return x.to(mm_dtype).float()
 
 
+@functools.lru_cache(maxsize=None)
+def _k2_chunk() -> int:
+    """The kernel's C, checked once against K2_CHUNK."""
+    c = kernel_library("stream_update").k2_chunk()
+    if c != K2_CHUNK:
+        raise RuntimeError(f"csrc/stream_update.cu sums chunks of {c} hits, "
+                           f"stream_plan.K2_CHUNK is {K2_CHUNK}")
+    return c
+
+
 def stream_update(
     optimizer: str,  # sgd | rwsadagrad | adagrad
     plan: StreamPlan,
@@ -435,6 +478,12 @@ def stream_update(
     if optimizer == "adagrad":
         _check_rows4("acc", acc)
     sr = bool(stochastic_round) and table.dtype == torch.bfloat16
+    # scratch of the runs of more than C hits, by C-window of U: the chunk
+    # table (two entries a window), each long run's length, block and row,
+    # and the chunks' fp32 sums (csrc/stream_update.cu)
+    windows = -(-plan.u_total // _k2_chunk())
+    runs_i = torch.empty(5 * windows, dtype=torch.int32, device=dev)
+    part = torch.empty((2 * windows, d), dtype=torch.float32, device=dev)
     _launch(
         "stream_update", dev,
         _OPTIMIZERS[optimizer], int(table.dtype == torch.bfloat16),
@@ -444,7 +493,8 @@ def stream_update(
         item_row0.data_ptr(), item_u.data_ptr(),
         m, plan.u_total, plan.num_blocks, plan.block_rows, d,
         float(lr), float(eps), int(seed) & _U32,
-        int(mm_dtype == torch.bfloat16), int(sr),
+        int(mm_dtype == torch.bfloat16), int(sr), runs_i.data_ptr(),
+        part.data_ptr(),
     )
     return (table,) if optimizer == "sgd" else (table, acc)
 

@@ -47,6 +47,9 @@ import numpy as np
 WINDOW = 1024  # U-slots per window (8 sublanes x 128 lanes)
 CHUNK = 256  # U-slots per work item
 SENTINEL_ROW = -1
+# C: K2 sums a row's run of more than K2_CHUNK hits in chunks of K2_CHUNK
+# (csrc/stream_update.cu kRunChunk); build_stream_work counts such runs
+K2_CHUNK = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,6 +207,11 @@ class StreamWork:
     # True once touched_update_items dropped the cover items: the list then
     # serves the in-place update (K2) only, never the streamed forward (K3)
     touched_only: bool = False
+    # the hits placed in U, and the runs of more than K2_CHUNK hits of one
+    # row with their hits: what K2 sums in chunks (the profiler's counters)
+    hits: int = 0
+    long_runs: int = 0
+    long_hits: int = 0
 
 
 def build_stream_work(
@@ -275,6 +283,7 @@ def build_stream_work(
         return arr[:, hot_col0[t] : hot_col0[t] + ht]
 
     budgets = plan.u_budget or (-1,) * t_
+    hits = long_runs = long_hits = 0
     for t in range(t_):
         ht = plan.hot[t]  # ragged multi-hot: only this table's real columns
         bh = b_ * ht
@@ -315,6 +324,11 @@ def build_stream_work(
         nb = plan.blocks_per_table[t]
         gb = plan.block_base[t]
         bounds = np.searchsorted(rs, np.arange(nb + 1) * br)
+        placed = rs[bounds[0]:bounds[-1]]
+        runs = np.diff(np.flatnonzero(np.diff(placed, prepend=-2, append=-2)))
+        hits += len(placed)
+        long_runs += int((runs > K2_CHUNK).sum())
+        long_hits += int(runs[runs > K2_CHUNK].sum())
         u = ub
         for j in range(nb):
             lo, hi = int(bounds[j]), int(bounds[j + 1])
@@ -358,6 +372,9 @@ def build_stream_work(
         item_row0=arr[:, 1].copy(),
         item_u=arr[:, 2].copy(),
         num_real_items=len(items),
+        hits=hits,
+        long_runs=long_runs,
+        long_hits=long_hits,
     )
 
 

@@ -17,7 +17,9 @@ each element rounded once to the nearest bf16), as in the JAX step.
 While utils/profiling.py's profile() traces, steps 1-4 are its spans
 EMB_FWD, LOSS and BWD (in grads_from_pooled), "DLRM dense update",
 "DLRM table grads" (timed on the card by two CUDA events) and "DLRM
-table update".
+table update", which counts the batch's hits and its rows of more than
+K2_CHUNK hits (K2_HITS, K2_LONG_RUNS, K2_LONG_HITS: build_stream_work's
+counts on the host, nothing read from the card).
 
 Under weighted pooling (cfg.weighted_pooling, the per-row weights v_w in
 the padded row layout) the forward must be the gather, with v_w folded into
@@ -258,6 +260,9 @@ def make_stream_train_step(
                     g_u = gather_grads(dly_t, sw.vals_u, wts_u, sw.w2t,
                                        out_dtype=g_dtype)
             with prof.scope(prof.TABLE_UPDATE):
+                prof.count(prof.K2_HITS, sw.hits)
+                prof.count(prof.K2_LONG_RUNS, sw.long_runs)
+                prof.count(prof.K2_LONG_HITS, sw.long_hits)
                 stream_update(
                     optimizer, plan, emb,
                     None if accum is None else accum["emb"]["stacked"],

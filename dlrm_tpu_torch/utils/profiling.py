@@ -51,6 +51,11 @@ PREFETCH_WAIT = "DLRM prefetch wait"
 # counters
 TO_DEVICE_BYTES = "DLRM to_device bytes"
 SYNCS = "DLRM syncs"  # present only where the sync debug mode was on
+# the stream step's hits, and its rows of more than K2_CHUNK hits and their
+# hits, which K2 sums in chunks (build_stream_work's counts on the host)
+K2_HITS = "DLRM K2 hits"
+K2_LONG_RUNS = "DLRM K2 long runs"
+K2_LONG_HITS = "DLRM K2 long-run hits"
 
 # the allocators' cumulative counters whose change over profile() is kept,
 # as "<function>.<key>" (port_bench's to_device readers report them); a

@@ -59,14 +59,68 @@ def _pool_case(case, seed=12):
     return plan, work, r_u
 
 
+C = tsp.K2_CHUNK
+# K2's runs of about C hits (csrc/stream_update.cu sums a run of more than
+# C hits in chunks of C): case -> table 0's (row, hits) runs
+LONG_RUNS = {
+    "c-1": [(7, C - 1)],
+    "c": [(7, C)],
+    "c+1": [(7, C + 1)],
+    "2c": [(7, 2 * C)],
+    "2c+1": [(7, 2 * C + 1)],
+    "two_long": [(3, C + 1), (9, 2 * C + 1)],  # both in one block
+    # table 0's last real slot; table 1's first rows are the same local row
+    "table_end": [(290, C + 100)],
+}
+
+
+def _long_run_idx(case, rng):
+    """Tables (900, 300, 40), 256 bags, hot (8, 2, 1): table 0 (one block
+    of EDGE_BR rows) holds LONG_RUNS[case] beside rows 16 .. 289 with a hit
+    or a few each; table 1's hits lie in rows 290 .. 299, 300 of them on
+    row 290, so in "table_end" a long run of row 290 ends table 0's
+    segment and a run of the same local row starts table 1's."""
+    tables, hot, b = (900, 300, 40), (8, 2, 1), 256
+    idx = np.stack([rng.integers(0, n, (b, 8)) for n in tables]).astype(
+        np.int32)
+    t0 = idx[0].reshape(-1)  # a view: table 0's hits in scan order
+    t0[:] = rng.integers(16, 290, t0.size)
+    pos = 0
+    for row, n in LONG_RUNS[case]:
+        t0[pos:pos + n] = row
+        pos += n
+    t1 = idx[1, :, :2].reshape(-1)
+    t1[:] = rng.integers(290, 300, t1.size)
+    t1[:300] = 290
+    idx[1, :, :2] = t1.reshape(b, 2)
+    return tables, b, hot, idx
+
+
+def _check_long_runs(case, plan, rows):
+    """Each run of LONG_RUNS[case] is one run of slots in table 0's
+    segment, spanning items where it is longer than one; "table_end"'s is
+    the segment's last real slot."""
+    seg = rows[:plan.u_base[1]]
+    for row, n in LONG_RUNS[case]:
+        run = np.flatnonzero(seg == row)
+        assert len(run) == n and run[-1] - run[0] == n - 1
+        assert run[0] // tsp.CHUNK != run[-1] // tsp.CHUNK  # spans items
+        if case == "table_end":
+            assert (seg[run[-1] + 1:] == tsp.SENTINEL_ROW).all()
+            assert rows[plan.u_base[1]] == row
+
+
 def _run_case(case, seed=13):
     """Plans for K2's run edge cases: one row with more than 256 hits (its
     run spans several items); tiny one-block tables whose last and first
     local rows coincide across a segment boundary; the long run on the
-    touched-only list. Returns the rng, the plan, the numpy work, dly and
+    touched-only list; the runs of about C hits of LONG_RUNS (the
+    touched-only list). Returns the rng, the plan, the numpy work, dly and
     an fp32 table."""
     rng = np.random.default_rng(seed)
-    if case == "segment_boundary":
+    if case in LONG_RUNS:
+        tables, b, h, idx = _long_run_idx(case, rng)
+    elif case == "segment_boundary":
         tables, b, h = (5, 5, 5), 4, 2
         # table 0 ends with row 2, table 1 starts with row 2, and so on
         idx = np.array([[[0, 2], [2, 1], [0, 0], [1, 2]],
@@ -80,10 +134,12 @@ def _run_case(case, seed=13):
     plan = tsp.make_stream_plan(tables, D, b, h, block_rows=EDGE_BR)
     wt = rng.uniform(0.5, 1.5, size=idx.shape).astype(np.float32)
     work = tsp.build_stream_work(plan, idx, wt, prefer_native=False)
-    if case == "touched":
+    if case == "touched" or case in LONG_RUNS:
         work = tsp.touched_update_items(plan, work)
     rows = work.rows_u.reshape(-1)
-    if case != "segment_boundary":
+    if case in LONG_RUNS:
+        _check_long_runs(case, plan, rows)
+    elif case != "segment_boundary":
         run = np.flatnonzero(rows[:plan.u_base[1]] == 7)
         assert len(run) == 2 * b and run[-1] - run[0] == 2 * b - 1
         assert run[0] // 256 != run[-1] // 256  # it spans items
@@ -173,7 +229,8 @@ def _device_work(work, dev):
 @pytest.mark.parametrize("optimizer", ["sgd", "rwsadagrad", "adagrad"])
 @pytest.mark.parametrize("table_dtype,sr", [("float32", False),
                                             ("bfloat16", True)])
-@pytest.mark.parametrize("case", ["long_run", "segment_boundary", "touched"])
+@pytest.mark.parametrize("case", ["long_run", "segment_boundary", "touched",
+                                  *LONG_RUNS])
 def test_stream_update_run_edge_cases_kernel_matches_plain(
         dev, case, optimizer, table_dtype, sr):
     _, plan, work, dly, table = _run_case(case)

@@ -201,6 +201,20 @@ def test_stream_step_spans_once_a_step(tmp_path):
     assert calls[0].thread != threading.get_native_id()
 
 
+def test_stream_step_counts_the_plan_hits_in_the_table_update(
+        tmp_path):
+    """K2's counters: each step adds its batch's hits and runs of more than
+    K2_CHUNK hits (none at this size) as build_stream_work counted them,
+    inside its "DLRM table update" span."""
+    n = 3
+    spans = _run_steps(torch.device("cpu"), n, tmp_path)
+    c = prof.counters()
+    assert c[prof.K2_HITS] == n * B * sum(HOTS)
+    assert c[prof.K2_LONG_RUNS] == c[prof.K2_LONG_HITS] == 0
+    updates = [s for s in spans if s.name == prof.TABLE_UPDATE]
+    assert [s.counts[prof.K2_HITS] for s in updates] == [B * sum(HOTS)] * n
+
+
 @pytest.mark.cuda
 def test_table_grads_device_time_and_syncs_on_the_card(card, tmp_path):
     spans = _run_steps(card, 3, tmp_path / "step")

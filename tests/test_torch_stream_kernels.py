@@ -16,10 +16,12 @@ bf16 values and are held at the fp32 cases' tolerances.
 
 K2 tolerances: fp32 tables/accumulators rtol 1e-5 / atol 1e-6 (the JAX kernel
 sums each block's grads with one-hot matmuls, the port per row in slot
-order); bf16 tables at most 1 bf16 ulp apart at the scale of the update's
-operands, both sides rounding to nearest (JAX interpret mode has no
-stochastic rounding). Stochastic rounding is checked for bias
-statistically.
+order, a row of more than K2_CHUNK hits in chunks); bf16 tables at most 1
+bf16 ulp apart at the scale of the update's operands, both sides rounding
+to nearest (JAX interpret mode has no stochastic rounding). Stochastic
+rounding is checked for bias statistically. The port's own order (slot
+order, chunks of K2_CHUNK for a longer row) is pinned bit for bit against
+an explicit fp32 loop on runs of about K2_CHUNK hits.
 
 The run edge cases (a row whose hits span several items, equal rows on
 both sides of a table boundary, the touched-only list) and the pooling
@@ -27,6 +29,7 @@ edge cases (weight-0 slots, a budgeted table, a bag with every hit dropped,
 a bag hitting one row twice) come from tests/test_torch_cuda_kernels.py,
 which holds the kernels against the plain versions on the same cases."""
 
+import functools
 import os
 import re
 
@@ -38,7 +41,7 @@ import torch
 from dlrm_tpu.ops import stream_kernels as jk
 from dlrm_tpu_torch.ops import stream_kernels as tk
 from dlrm_tpu_torch.ops import stream_plan as tsp
-from test_torch_cuda_kernels import _pool_case, _run_case
+from test_torch_cuda_kernels import LONG_RUNS, _pool_case, _run_case
 
 TABLES = (300, 50, 700)
 D = 128
@@ -227,12 +230,12 @@ def test_chunk_overrunning_into_next_block():
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("optimizer", ["sgd", "rwsadagrad", "adagrad"])
-def test_bf16_table_round_to_nearest_within_one_ulp(optimizer):
-    rng, plan, idx, wt, dly, table = _setup()
-    work = _work(plan, idx, wt, True)
-    acc = _acc(optimizer, plan, rng)
-    g_u = _g_u(dly, work)
+def _bf16_tables_against_jax(optimizer, plan, table, acc, g_u, work):
+    """The bf16 table (and fp32 accumulator) after JAX's update in
+    interpret mode and after the port's, both rounding to nearest with
+    mm_dtype bf16, held within one bf16 ulp at the scale of the update's
+    operands; returns the share of elements within one ulp of the
+    result's own scale."""
     t16 = np.asarray(jnp.asarray(table, jnp.bfloat16))
     want = jk.stream_update(
         optimizer, plan, jnp.asarray(t16), None if acc is None
@@ -260,13 +263,34 @@ def test_bf16_table_round_to_nearest_within_one_ulp(optimizer):
     scale = np.maximum(np.maximum(np.abs(a), np.abs(b)), np.abs(old))
     ulp = np.exp2(np.floor(np.log2(np.maximum(scale, 2.0**-126))) - 7)
     assert (np.abs(a - b) <= ulp).all(), np.abs(a - b).max()
-    exact = np.abs(a - b) <= np.exp2(
-        np.floor(np.log2(np.maximum(np.maximum(np.abs(a), np.abs(b)),
-                                    2.0**-126))) - 7)
-    assert exact.mean() > 0.999, exact.mean()
     if acc is not None:
         np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
                                    rtol=1e-5, atol=1e-6)
+    exact = np.abs(a - b) <= np.exp2(
+        np.floor(np.log2(np.maximum(np.maximum(np.abs(a), np.abs(b)),
+                                    2.0**-126))) - 7)
+    return exact.mean()
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "rwsadagrad", "adagrad"])
+def test_bf16_table_round_to_nearest_within_one_ulp(optimizer):
+    rng, plan, idx, wt, dly, table = _setup()
+    work = _work(plan, idx, wt, True)
+    acc = _acc(optimizer, plan, rng)
+    exact = _bf16_tables_against_jax(optimizer, plan, table, acc,
+                                     _g_u(dly, work), work)
+    assert exact > 0.999, exact
+
+
+def test_bf16_table_run_longer_than_the_chunk_within_one_ulp():
+    """A row of 2 K2_CHUNK + 1 hits, which the port sums as three chunks
+    and then their sums: JAX sums the block's hits with one-hot matmuls, so
+    the fp32 sums differ in their last bits, and the bf16 tables may part
+    by one rounding: within one bf16 ulp, the file's tolerance."""
+    rng, plan, work, dly, table = _run_case("2c+1")
+    acc = _acc("rwsadagrad", plan, rng)
+    _bf16_tables_against_jax("rwsadagrad", plan, table, acc,
+                             _g_u(dly, work), work)
 
 
 def test_stochastic_rounding_is_unbiased():
@@ -430,6 +454,18 @@ def test_window_grads_launch_constants_match_the_kernel_source():
     assert tsp.WINDOW % tk.K1_TILE == 0
 
 
+def test_k2_chunk_matches_the_kernel_source():
+    """stream_plan.K2_CHUNK, which build_stream_work counts runs by and the
+    plain version chunks by, is stream_update.cu's kRunChunk (the wrapper
+    checks k2_chunk() on the card too), and twice the U-segment's least
+    sentinel tail, the item size, that the kernel's long-run probes rely
+    on."""
+    csrc = os.path.join(os.path.dirname(tk.__file__), os.pardir, "csrc")
+    with open(os.path.join(csrc, "stream_update.cu")) as f:
+        chunk = re.search(r"constexpr int kRunChunk = (\d+);", f.read())
+    assert int(chunk.group(1)) == tsp.K2_CHUNK == 2 * tsp.CHUNK
+
+
 def test_window_grads_of_no_window():
     g_u = tk.window_grads(torch.zeros((2, 4, D)),
                           torch.zeros((0, 8, 128), dtype=torch.int32),
@@ -555,6 +591,93 @@ def test_plain_stream_update_run_edge_cases_match_jax(case, optimizer):
     got = _run_port(optimizer, plan, table, acc, g_u, work, torch.float32)
     for w, g in zip(want, got):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6)
+
+
+def _explicit_gsums(plan, work, g):
+    """{global row: Gsum} by an fp32 loop over each row's slots in K2's
+    stated order: a run of up to K2_CHUNK hits from zero in slot order; a
+    longer one as chunks of K2_CHUNK hits from its first slot, each from
+    zero in slot order, then the chunks' sums from zero in chunk order.
+    Beside it the one-level slot-order sum of each row."""
+    c = tsp.K2_CHUNK
+    rows = work.rows_u.reshape(-1)
+    ends = list(plan.u_base[1:]) + [plan.u_size]
+    two, one = {}, {}
+    for t, (lo, hi) in enumerate(zip(plan.u_base, ends)):
+        seg = rows[lo:hi]
+        for r in np.unique(seg[seg != tsp.SENTINEL_ROW]):
+            slots = lo + np.flatnonzero(seg == r)
+            parts = []
+            for h in range(0, len(slots), c):
+                p = np.zeros(g.shape[1], np.float32)
+                for u in slots[h:h + c]:
+                    p = p + g[u]
+                parts.append(p)
+            s = np.zeros(g.shape[1], np.float32)
+            for p in parts:
+                s = s + p
+            flat = np.zeros(g.shape[1], np.float32)
+            for u in slots:
+                flat = flat + g[u]
+            grow = plan.padded_offsets[t] + int(r)
+            two[grow], one[grow] = s, flat
+    return two, one
+
+
+@functools.lru_cache(maxsize=None)
+def _long_run_sums(case, g_dtype, mm):
+    """A LONG_RUNS case's plan, work, table and G_u, with the explicit
+    loop's sums of its G rows rounded to mm."""
+    _, plan, work, dly, table = _run_case(case)
+    g_u = torch.from_numpy(_g_u(dly, work)).to(getattr(torch, g_dtype))
+    two, one = _explicit_gsums(plan, work, g_u.to(mm).float().numpy())
+    return plan, work, table, g_u, two, one
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "rwsadagrad", "adagrad"])
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("table_dtype,sr", [("float32", False),
+                                            ("bfloat16", True)])
+@pytest.mark.parametrize("case", list(LONG_RUNS))
+def test_plain_stream_update_long_runs_in_the_stated_order(
+        case, table_dtype, sr, g_dtype, optimizer):
+    """Runs of K2_CHUNK - 1 to 2 K2_CHUNK + 1 hits, two long runs in one
+    block, and one ending at its table's last real slot (each spanning
+    items): the plain version's table and accumulator are the update of
+    the explicit loop's sums, bit for bit; a bf16 table also with mm_dtype
+    bf16 (each G row rounded first) and stochastic rounding. Where a run's
+    chunks hold more than one hit past the first, the one-level slot-order
+    sum differs, so the order is what is held."""
+    tdt = getattr(torch, table_dtype)
+    mm = tdt  # fp32 with the fp32 table, bf16 with the bf16 one
+    plan, work, table, g_u, two, one = _long_run_sums(case, g_dtype, mm)
+    acc = _acc(optimizer, plan, np.random.default_rng(1))
+    base = torch.from_numpy(table).to(tdt)
+    t_acc = None if acc is None else torch.from_numpy(acc.copy())
+    got = tk.stream_update(
+        optimizer, plan, base.clone(), t_acc, g_u, _t(work.rows_u),
+        _t(work.item_block), _t(work.item_row0), _t(work.item_u), LR,
+        mm_dtype=mm, stochastic_round=sr, seed=5)
+    rows = torch.tensor(sorted(two))
+    gs = torch.from_numpy(np.stack([two[r] for r in sorted(two)]))
+    d = gs.shape[1]
+    w = base[rows].float()
+    if optimizer == "sgd":
+        new = w - LR * gs
+    elif optimizer == "rwsadagrad":
+        a = torch.from_numpy(acc).view(-1)[rows] + tk._warp_sum(gs * gs) / d
+        new = w - (LR * gs) / (torch.sqrt(a) + tk.ADAGRAD_EPS)[:, None]
+        assert torch.equal(got[1].view(-1)[rows], a)
+    else:
+        a = torch.from_numpy(acc)[rows] + gs * gs
+        new = w - (LR * gs) / (torch.sqrt(a) + tk.ADAGRAD_EPS)
+        assert torch.equal(got[1][rows], a)
+    want = base.clone()
+    want[rows] = tk.cast_out(new, tdt, sr, 5, rows)
+    assert torch.equal(got[0].view(torch.uint8), want.view(torch.uint8))
+    if case in ("2c", "2c+1", "two_long", "table_end"):
+        assert any((two[r] != one[r]).any() for r in two), \
+            "the one-level order gives the same bits here"
 
 
 def test_warp_sum_order():

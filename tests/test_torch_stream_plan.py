@@ -245,3 +245,37 @@ def test_skip_wts_unit_weight_build():
         dataclasses.replace(nat, wts_u=nat_derived),
         dataclasses.replace(lean, wts_u=derived),
     )
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["numpy", "native"])
+def test_stream_work_counts_the_runs_k2_sums_in_chunks(native):
+    """Both paths of build_stream_work count the hits they place and the
+    rows with more than K2_CHUNK of them (the runs K2 sums in chunks) with
+    those rows' hits: rows of K2_CHUNK - 1, K2_CHUNK, K2_CHUNK + 1 and
+    2 K2_CHUNK + 1 hits in table 0, one of K2_CHUNK + 1 in table 2's second
+    block; the touched-only list keeps the counts."""
+    if native:
+        assert stream_native.available(), "g++ build of stream_work.cc failed"
+    c = tsp.K2_CHUNK
+    tables, b, hot = (300, 50, 2000), 512, (8, 1, 2)
+    rng = np.random.default_rng(21)
+    idx = np.stack([rng.integers(0, n, (b, 8)) for n in tables]).astype(
+        np.int32)
+    t0 = idx[0].reshape(-1)  # a view: table 0's hits in scan order
+    t0[:] = rng.integers(10, 300, t0.size)
+    pos = 0
+    for row, n in ((1, c - 1), (2, c), (3, c + 1), (4, 2 * c + 1)):
+        t0[pos:pos + n] = row
+        pos += n
+    t2 = idx[2, :, :2].reshape(-1)
+    t2[:c + 1] = BR + 5  # in the second block
+    idx[2, :, :2] = t2.reshape(b, 2)
+    plan = tsp.make_stream_plan(tables, D, b, hot, block_rows=BR)
+    wt = np.ones(idx.shape, np.float32)
+    work = tsp.build_stream_work(plan, idx, wt, prefer_native=native)
+    assert work.hits == b * sum(hot)
+    assert work.long_runs == 3
+    assert work.long_hits == (c + 1) + (2 * c + 1) + (c + 1)
+    slim = tsp.touched_update_items(plan, work)
+    assert (slim.hits, slim.long_runs, slim.long_hits) == (
+        work.hits, work.long_runs, work.long_hits)
