@@ -94,6 +94,13 @@ class DLRMConfig:
     # projection interaction: number of output features per projected interaction
     # (torchrec DLRM_Projection interaction_branch{1,2}_layer_sizes analog).
     proj_interaction_dims: Optional[Tuple[int, ...]] = None
+    # torchrec's own DLRM_Projection (InteractionProjectionArch; the flags
+    # --interaction_branch{1,2}_layer_sizes, dlrm_main.py:618-635): each
+    # branch an MLP of these sizes over the flattened features, a ReLU after
+    # every layer; branch 1's output read [F1, d], branch 2's [d, F2], F_i =
+    # last size / d. Set both, in place of proj_interaction_dims.
+    interaction_branch1_layer_sizes: Optional[Tuple[int, ...]] = None
+    interaction_branch2_layer_sizes: Optional[Tuple[int, ...]] = None
 
     # Embedding tricks.
     qr: Optional[QRConfig] = None
@@ -125,6 +132,7 @@ class DLRMConfig:
             raise ValueError(f"loss {self.loss!r} not supported")
         if self.interaction == "dcn" and self.dcn is None:
             object.__setattr__(self, "dcn", DCNConfig())
+        self._check_branches()
         if self.qr is not None and self.md is not None:
             raise ValueError("qr and md embedding tricks are mutually exclusive")
         # Same consistency check as dlrm_s_pytorch.py:1173-1178.
@@ -133,6 +141,35 @@ class DLRMConfig:
                 f"bottom-MLP output dim ({self.mlp_bot[-1]}) must equal "
                 f"embedding dim ({self.embedding_dim})"
             )
+
+    def _check_branches(self) -> None:
+        """torchrec's checks of the two branches (DLRM_Projection):
+        both given, for the projection interaction, each last size a
+        multiple of the embedding dim."""
+        branches = (self.interaction_branch1_layer_sizes,
+                    self.interaction_branch2_layer_sizes)
+        if branches == (None, None):
+            return
+        if None in branches:
+            raise ValueError("give both interaction branches' layer sizes")
+        if self.interaction != "projection" or self.proj_interaction_dims:
+            raise ValueError("interaction branch layer sizes need the "
+                             "projection interaction without "
+                             "proj_interaction_dims")
+        for i, sizes in enumerate(branches, 1):
+            sizes = _as_tuple(sizes)
+            object.__setattr__(self, f"interaction_branch{i}_layer_sizes",
+                               sizes)
+            if not sizes or sizes[-1] % self.embedding_dim:
+                raise ValueError(
+                    f"interaction branch {i}'s last layer size {sizes[-1:]} "
+                    f"must be divisible by the embedding dim "
+                    f"{self.embedding_dim}")
+
+    @property
+    def proj_branches(self) -> bool:
+        """torchrec's form of the projection interaction (two MLPs)."""
+        return self.interaction_branch1_layer_sizes is not None
 
     # ---- derived shapes (dlrm_s_pytorch.py:1150-1170) ----
 
@@ -160,6 +197,10 @@ class DLRMConfig:
             return f * d
         if self.interaction == "dcn":
             return f * d  # cross-net preserves the concat width
+        if self.interaction == "projection" and self.proj_branches:
+            # dense passthrough + the [F1, F2] products of the two branches
+            return d + (self.interaction_branch1_layer_sizes[-1] // d) * (
+                self.interaction_branch2_layer_sizes[-1] // d)
         if self.interaction == "projection":
             assert self.proj_interaction_dims is not None
             # dense passthrough + pairwise dots of two projected branches

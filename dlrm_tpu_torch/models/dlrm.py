@@ -5,7 +5,8 @@ Parameters keep the JAX package's tree so they cross the bridge unchanged:
 {"emb": {"stacked": [rows, d]}, "bot": [{"w": [n_in, n_out], "b": [n_out]},
 ...], "top": [...]}, plus "v_w" [rows] under weighted pooling, "dcn" (a list
 of {"v", "w", "b"}) under the dcn interaction and "proj_w1"/"proj_w2" under
-the projection interaction. With QR or MD tables the tables are a list,
+the projection interaction ("proj_branch1"/"proj_branch2", layer lists as
+"bot", in torchrec's form). With QR or MD tables the tables are a list,
 {"emb": {"tables": [entry, ...]}}, one entry per table: {"q", "r"} for a QR
 table, {"w"} plus a "proj" [dim, d] for an MD table narrower than d, {"w"}
 otherwise; "v_w" is then a list of [n] vectors. For quantized inference
@@ -257,6 +258,11 @@ class DLRMModel:
                  "b": torch.zeros((n,), device=dev)}
                 for _ in range(cfg.dcn.num_layers)
             ]}
+        if cfg.interaction == "projection" and cfg.proj_branches:
+            fd = cfg.num_features * cfg.mlp_bot[-1]
+            return {f"proj_branch{i}": init_mlp(gen, (fd,) + sizes, dev)
+                    for i, sizes in ((1, cfg.interaction_branch1_layer_sizes),
+                                     (2, cfg.interaction_branch2_layer_sizes))}
         if cfg.interaction == "projection":
             d = cfg.mlp_bot[-1]
             fd = cfg.num_features * d
@@ -271,10 +277,12 @@ class DLRMModel:
         """Quantized inference towers (the reference's quantize_dynamic to
         qint8/float16 on every Linear, dlrm_s_pytorch.py:1473-1480): bits=8
         per-channel int8 weights with per-batch activation quantization and
-        int32 sums; bits=16 bf16 weights."""
+        int32 sums; bits=16 bf16 weights. torchrec's projection branches
+        are towers too and are quantized alike."""
         out = dict(params)
-        out["bot"] = Q.quantize_mlp(params["bot"], bits)
-        out["top"] = Q.quantize_mlp(params["top"], bits)
+        for k in ("bot", "top", "proj_branch1", "proj_branch2"):
+            if k in params:
+                out[k] = Q.quantize_mlp(params[k], bits)
         return out
 
     def quantize_embeddings(self, params: Params, bits: int,
@@ -445,8 +453,18 @@ class DLRMModel:
         if cfg.interaction == "dcn":
             return low_rank_cross_net(params["dcn"], cat_interaction(x, ly))
         if cfg.interaction == "projection":
-            return projection_interaction(x, ly, params["proj_w1"],
-                                          params["proj_w2"])
+            keys = (("proj_branch1", "proj_branch2") if cfg.proj_branches
+                    else ("proj_w1", "proj_w2"))
+            branches = [params[k] for k in keys]
+            leaves = tree_leaves(branches)
+
+            def interaction(x, ly, *ws):
+                got = iter(ws)
+                return projection_interaction(
+                    x, ly, *tree_map(lambda _: next(got), branches))
+
+            return prof.backward_scope(prof.INT_BWD, interaction, x, ly,
+                                       *leaves)
         raise ValueError(f"interaction {cfg.interaction!r} not supported")
 
     def forward_from_pooled(self, params: Params, dense: torch.Tensor,

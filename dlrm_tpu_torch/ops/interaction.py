@@ -9,9 +9,12 @@ cat: plain concatenation (dlrm_s_pytorch.py:505-507).
 dcn: DCN-v2 low-rank cross network on the concatenated features (torchrec
 DLRM_DCN, torchrec_dlrm/dlrm_main.py:598-617).
 
-projection: both branches project the concatenated features linearly into
-p_i vectors of width d; their pairwise dots follow the dense vector
-(torchrec DLRM_Projection, torchrec_dlrm/dlrm_main.py:618-635).
+projection: two branches map the concatenated features to F_1 and F_2
+vectors of width d; their pairwise dots follow the dense vector (torchrec
+DLRM_Projection, torchrec_dlrm/dlrm_main.py:618-635). A branch is torchrec's
+MLP (InteractionProjectionArch: a ReLU after every layer, branch 2 read
+[d, F2]) or, in the JAX package's simplified form, one linear map (branch 2
+read [F2, d] and transposed).
 
 Every product takes fp32 sums and is rounded to the compute dtype once
 (ops/mlp.py::matmul_f32), as the JAX package's
@@ -21,12 +24,13 @@ preferred_element_type=float32 einsums are.
 from __future__ import annotations
 
 import functools
-from typing import List
+from typing import List, Union
 
 import numpy as np
 import torch
 
-from dlrm_tpu_torch.ops.mlp import matmul_f32
+from dlrm_tpu_torch.ops import quantized as Q
+from dlrm_tpu_torch.ops.mlp import apply_mlp, matmul_f32
 
 
 def _tril_flat_indices(num_features: int, itself: bool) -> np.ndarray:
@@ -84,17 +88,34 @@ def low_rank_cross_net(
     return xl
 
 
+def _branch(feats: torch.Tensor, branch: Union[torch.Tensor, List[dict]],
+            dtype: torch.dtype) -> torch.Tensor:
+    """One branch in the compute dtype: a weight [F*d, p*d] is the
+    simplified form's linear map; a list of layers is torchrec's MLP,
+    bf16 or quantized (quantize_mlps) like the towers."""
+    if isinstance(branch, torch.Tensor):
+        return matmul_f32(feats, branch).to(dtype)
+    if Q.is_quantized_mlp(branch):
+        return Q.apply_mlp_quantized(branch, feats).to(dtype)
+    return apply_mlp(branch, feats)
+
+
 def projection_interaction(
     x: torch.Tensor,  # [B, d]
     ly: torch.Tensor,  # [B, T, d]
-    w1: torch.Tensor,  # [F*d, p1*d] branch-1 projection
-    w2: torch.Tensor,  # [F*d, p2*d] branch-2 projection
-) -> torch.Tensor:  # [B, d + p1*p2]
-    """The two projections round to the compute dtype; their pairwise
-    dots are taken in fp32 and cast once, as in dot_interaction."""
+    branch1: Union[torch.Tensor, List[dict]],
+    branch2: Union[torch.Tensor, List[dict]],
+) -> torch.Tensor:  # [B, d + F1*F2]
+    """Y = branch1(c) [B, F1, d] and Z [B, d, F2] from c = flatten(x, ly):
+    torchrec's MLP branches give Z as branch2(c).reshape(B, d, F2), the
+    simplified form's weights as branch2(c).reshape(B, F2, d) transposed.
+    Each branch rounds to the compute dtype a layer; bmm(Y, Z) is taken
+    in fp32 and cast once, as in dot_interaction."""
     batch, d = x.shape
     feats = torch.cat([x[:, None, :], ly], dim=1).reshape(batch, -1)
-    p1 = matmul_f32(feats, w1).to(x.dtype).reshape(batch, -1, d)
-    p2 = matmul_f32(feats, w2).to(x.dtype).reshape(batch, -1, d)
-    z = torch.bmm(p1.float(), p2.float().transpose(1, 2))  # [B, p1, p2]
-    return torch.cat([x, z.reshape(batch, -1).to(x.dtype)], dim=1)
+    y = _branch(feats, branch1, x.dtype).reshape(batch, -1, d)
+    z = _branch(feats, branch2, x.dtype)
+    z = (z.reshape(batch, -1, d).transpose(1, 2)
+         if isinstance(branch2, torch.Tensor) else z.reshape(batch, d, -1))
+    out = torch.bmm(y.float(), z.float())  # [B, F1, F2]
+    return torch.cat([x, out.reshape(batch, -1).to(x.dtype)], dim=1)

@@ -20,6 +20,11 @@ weighs 0, so both layouts give the same parameters to the bit.
 Everything updates IN PLACE, where the JAX step donates its buffers: the
 step returns the same params and opt_state objects it was given. The step
 never waits on the device.
+
+Spans (utils/profiling.py): "DLRM embedding forward" (the lookup), "DLRM
+dense update", "DLRM table grads" (the sort and coalesce_rows, with the
+counter "DLRM fused hits") and "DLRM table update" (row_scatter_add and the
+row accumulators); grads_from_pooled brackets the loss and backward.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from dlrm_tpu_torch.optim.optimizers import (
     apply_updates,
     tree_map,
 )
+from dlrm_tpu_torch.utils import profiling as prof
 
 
 def supports_fused(model: DLRMModel) -> bool:
@@ -70,15 +76,18 @@ def _hots(batch: Batch, hot_sizes) -> tuple:
 def _update_table(optimizer, emb, accum, dly, idx, wt, offsets, hots, lr,
                   eps):
     """The fused sparse update of the stacked table (and its accumulator)."""
-    urows, G, valid = coalesce_hits(dly, idx, wt, offsets, emb.shape[0],
-                                    hot_sizes=hots)
-    if optimizer == "sgd":
-        sgd_from_coalesced(emb, urows, G, valid, lr)
-    elif optimizer == "rwsadagrad":
-        rowwise_adagrad_from_coalesced(emb, accum, urows, G, valid, lr,
-                                       eps=eps)
-    else:
-        adagrad_from_coalesced(emb, accum, urows, G, valid, lr, eps=eps)
+    with prof.scope(prof.TABLE_GRADS):
+        prof.count(prof.FUSED_HITS, dly.shape[0] * sum(hots))
+        urows, G, valid = coalesce_hits(dly, idx, wt, offsets, emb.shape[0],
+                                        hot_sizes=hots)
+    with prof.scope(prof.TABLE_UPDATE):
+        if optimizer == "sgd":
+            sgd_from_coalesced(emb, urows, G, valid, lr)
+        elif optimizer == "rwsadagrad":
+            rowwise_adagrad_from_coalesced(emb, accum, urows, G, valid, lr,
+                                           eps=eps)
+        else:
+            adagrad_from_coalesced(emb, accum, urows, G, valid, lr, eps=eps)
 
 
 def _split_state(opt_state):
@@ -105,13 +114,15 @@ def make_fused_train_step(model: DLRMModel, optimizer: str,
         hots = _hots(batch, hot_sizes)
         b = batch.dense.shape[0]
         dense = {k: v for k, v in params.items() if k != "emb"}
-        with torch.no_grad():
+        with torch.no_grad(), prof.scope(prof.EMB_FWD):
             pooled = grouped_embedding_bag(emb, offsets, batch.idx, batch.wt,
                                            hots, batch=b)
         loss, probs, grads, dly = model.grads_from_pooled(dense, batch, pooled)
         dense_accum, emb_accum = _split_state(opt_state)
         with torch.no_grad():
-            apply_updates(optimizer, dense, grads, dense_accum, lr, eps=eps)
+            with prof.scope(prof.DENSE_UPDATE):
+                apply_updates(optimizer, dense, grads, dense_accum, lr,
+                              eps=eps)
             _update_table(optimizer, emb, emb_accum, dly, batch.idx,
                           batch.wt, offsets, hots, lr, eps)
         opt_state["step"] += 1

@@ -8,6 +8,12 @@ torch.profiler traces the host and, on the card, the device, and writes
 `trace.json` into the output directory; the region labels are the
 reference's, kept verbatim, and the port's own in the same style.
 
+The autograd engine runs a backward on a thread of its own, so a scope
+around the call that builds a graph does not hold its backward:
+backward_scope(name, fn, *inputs) runs fn's backward inside scope(name),
+on whatever thread runs it, traced or not (the same bits as plain
+autograd).
+
 While profile() traces, each scope() also keeps a Span in memory (its
 name, thread, enclosing scope, host start and end, and with device=True
 the card's time between two CUDA events), count() adds to named counters,
@@ -37,6 +43,7 @@ FWD = "DLRM forward"
 EMB_FWD = "DLRM embedding forward"
 BOT_FWD = "DLRM bottom nlp forward"
 INT_FWD = "DLRM interaction forward"
+INT_BWD = "DLRM interaction backward"
 TOP_FWD = "DLRM top nlp forward"
 LOSS = "DLRM loss compute"
 BWD = "DLRM backward"
@@ -56,6 +63,8 @@ SYNCS = "DLRM syncs"  # present only where the sync debug mode was on
 K2_HITS = "DLRM K2 hits"
 K2_LONG_RUNS = "DLRM K2 long runs"
 K2_LONG_HITS = "DLRM K2 long-run hits"
+# the fused step's hits (its batch's shape: batch x the hot sizes' sum)
+FUSED_HITS = "DLRM fused hits"
 
 # the allocators' cumulative counters whose change over profile() is kept,
 # as "<function>.<key>" (port_bench's to_device readers report them); a
@@ -152,6 +161,37 @@ def scope(name: str, device: bool = False
     if _active:
         return _Scope(name, device)
     return contextlib.nullcontext()
+
+
+class _ScopedBackward(torch.autograd.Function):
+    """fn(*inputs) as one node: its forward builds fn's graph on detached
+    inputs, its backward runs that graph's backward inside scope(name)."""
+
+    @staticmethod
+    def forward(ctx, name, fn, *inputs):
+        ctx.name = name
+        ctx.inputs = [t.detach().requires_grad_(need) for t, need in
+                      zip(inputs, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            ctx.out = fn(*ctx.inputs)
+        return ctx.out.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        want = [t for t in ctx.inputs if t.requires_grad]
+        with scope(ctx.name):
+            got = iter(torch.autograd.grad(ctx.out, want, grad))
+        return (None, None, *(next(got) if need else None
+                              for need in ctx.needs_input_grad[2:]))
+
+
+def backward_scope(name: str, fn, *inputs: torch.Tensor) -> torch.Tensor:
+    """fn(*inputs), with its backward inside scope(name) where a gradient
+    is taken; the plain call otherwise."""
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in inputs)):
+        return fn(*inputs)
+    return _ScopedBackward.apply(name, fn, *inputs)
 
 
 def count(name: str, n: float = 1) -> None:

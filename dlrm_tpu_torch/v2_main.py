@@ -6,7 +6,9 @@ style). Ported: the single-device paths, which are the stream path (the
 U-layout update, K2 on the card), the fused coalesce+scatter step
 (train/fused_step.py, the coalesce_rows and row_scatter_add kernels on the
 card) and the dense autograd step (train/step.py), with the dot, dcn and
-projection interactions and weighted pooling; the sharded paths over
+projection interactions (the projection is torchrec's DLRM_Projection, both
+--interaction_branch{1,2}_layer_sizes taken whole; the JAX trainer keeps
+one linear map a branch of branch 1's last size) and weighted pooling; the sharded paths over
 several ranks (--sharded, one model shard per rank): the stream butterfly
 (parallel/stream_butterfly.py, K2 on each shard) and the fused butterfly
 (parallel/butterfly.py, coalesce_rows and row_scatter_add on each shard,
@@ -347,10 +349,13 @@ def _main(args, dev, world: int) -> int:
     ]
     dense_arch = tuple(int(x) for x in args.dense_arch_layer_sizes.split(","))
     over_arch = tuple(int(x) for x in args.over_arch_layer_sizes.split(","))
-    proj = None
+    # torchrec's DLRM_Projection: both branches' layer sizes, whole
+    branches = (None, None)
     if interaction == "projection":
-        b1 = tuple(int(x) for x in args.interaction_branch1_layer_sizes.split(","))
-        proj = (b1[-1] // dense_arch[-1],)
+        branches = tuple(
+            tuple(int(x) for x in sizes.split(","))
+            for sizes in (args.interaction_branch1_layer_sizes,
+                          args.interaction_branch2_layer_sizes))
     model_cfg = DLRMConfig(
         embedding_dim=args.embedding_dim,
         table_sizes=table_sizes,
@@ -360,7 +365,8 @@ def _main(args, dev, world: int) -> int:
         dcn=DCNConfig(args.dcn_num_layers, args.dcn_low_rank_dim)
         if interaction == "dcn"
         else None,
-        proj_interaction_dims=proj,
+        interaction_branch1_layer_sizes=branches[0],
+        interaction_branch2_layer_sizes=branches[1],
         loss="bce",
         num_indices_per_lookup=max(hot_sizes) if hot_sizes else 1,
         compute_dtype="bfloat16",

@@ -86,8 +86,9 @@ def jax_init(monkeypatch):
     """The port's DLRMModel.init_params returns the JAX package's
     init_params for the same config and seed, carried across."""
     def init_params(self, seed=0, device="cuda"):
+        assert not self.cfg.proj_branches  # the JAX package has no such form
         kw = {f.name: getattr(self.cfg, f.name)
-              for f in dataclasses.fields(self.cfg)}
+              for f in dataclasses.fields(JaxConfig)}
         p = JaxModel(JaxConfig(**kw)).init_params(jax.random.PRNGKey(seed))
         return params_from_jax(jax.tree_util.tree_map(np.asarray, p),
                                device=device)
@@ -557,7 +558,11 @@ def test_parser_matches_jax():
     targs = tcli.build_parser().parse_args(argv[:1] + ["--md-flag"])
     jm, jt = jcli.configs_from_args(jargs)
     tm, tt = tcli.configs_from_args(targs)
-    assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
+    # the port's one addition, torchrec's projection branches, unset
+    port = dataclasses.asdict(tm)
+    assert port.pop("interaction_branch1_layer_sizes") is None
+    assert port.pop("interaction_branch2_layer_sizes") is None
+    assert port == dataclasses.asdict(jm)
     assert dataclasses.asdict(tt) == dataclasses.asdict(jt)
 
 

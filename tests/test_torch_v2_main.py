@@ -8,20 +8,27 @@ the other way, since the two bf16 towers round differently; the LR
 sequence and sample counts exact) on every single-device branch (stream,
 fused, dense; the dot, dcn and projection interactions; weighted pooling
 on the auto and stream paths), the flag surface, the auto cost model, and
-the branches that are not ported. The parity runs keep the learning
-rate small: on random labels a model barely moves off its init, and
+the branches that are not ported. The projection interaction is torchrec's
+DLRM_Projection here (both branch flags whole) and a single linear map a
+branch in the JAX trainer, so its case holds the JAX trainer's sample
+counts and LR sequence and holds each step's loss and the first step's
+probabilities to the plain reference, port_bench/reference/
+dlrm_proj_ref.py. The parity runs keep the learning rate small: on random labels a model barely moves off its init, and
 Adagrad's first steps or a large SGD rate amplify the towers' rounding
 differences until AUROC, which ranks near-equal scores, says nothing."""
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
+import os
 import re
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from dlrm_tpu import v2_main as jmain
 from dlrm_tpu.config import DLRMConfig as JaxConfig
@@ -35,6 +42,14 @@ from dlrm_tpu_torch.data.multi_hot_criteo import (
     materialize_multihot_dataset,
 )
 from dlrm_tpu_torch.models.dlrm import DLRMModel
+from dlrm_tpu_torch.optim.optimizers import tree_map
+
+_spec = importlib.util.spec_from_file_location(
+    "dlrm_proj_ref", os.path.join(os.path.dirname(__file__), os.pardir,
+                                  "port_bench", "reference",
+                                  "dlrm_proj_ref.py"))
+PROJ_REF = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(PROJ_REF)
 
 SMALL = [
     "--embedding_dim", "8",
@@ -170,9 +185,13 @@ def test_materialized_geometry_mismatch_exits(multihot_dir):
 def jax_init(monkeypatch):
     """The port's DLRMModel.init_params returns the JAX package's init for
     the same config and seed, carried across with bridge.py."""
+    own = DLRMModel.init_params
+
     def init_params(self, seed=0, device="cuda"):
+        if self.cfg.proj_branches:  # torchrec's branches: the JAX package
+            return own(self, seed, device)  # has no such form
         kw = {f.name: getattr(self.cfg, f.name)
-              for f in dataclasses.fields(self.cfg)}
+              for f in dataclasses.fields(JaxConfig)}
         p = JaxModel(JaxConfig(**kw)).init_params(jax.random.PRNGKey(seed))
         return params_from_jax(jax.tree_util.tree_map(np.asarray, p),
                                device=device)
@@ -372,7 +391,9 @@ PARITY = ["--limit_train_batches", "4", "--limit_val_batches", "2",
     (["--interaction_type", "dcn", "--dcn_num_layers", "2",
       "--dcn_low_rank_dim", "8", "--adagrad"], None),
     (["--interaction_type", "projection",
-      "--interaction_branch1_layer_sizes", "16,16"], None),
+      "--interaction_branch1_layer_sizes", "16,16",
+      "--interaction_branch2_layer_sizes", "16,24",
+      "--embedding_impl", "fused", "--adagrad"], "fused"),
     (["--weighted_pooling", "learned", "--adagrad"], "dense"),
     (["--weighted_pooling", "fixed", "--embedding_impl", "stream"], None),
     (["--weighted_pooling", "fixed"], "dense"),
@@ -382,17 +403,88 @@ PARITY = ["--limit_train_batches", "4", "--limit_val_batches", "2",
       "--dcn_low_rank_dim", "4", "--embedding_impl", "fused"], "fused"),
 ], ids=["fused", "dense", "dcn", "projection", "wp-auto", "wp-stream",
         "wp-fixed-auto", "wp-learned-stream", "dcn-fused"])
-def test_parity_single_device_branches(jax_init, extra, path):
+def test_parity_single_device_branches(jax_init, monkeypatch, extra, path):
     """Each branch that used to raise NotImplementedError, against the JAX
     trainer on the same argv: random data through Multihot, 4 steps, val
     and test. auto takes the stream path on these small tables (path None:
     no line names a fused or dense step) and the dense step under weighted
-    pooling, as in JAX."""
+    pooling, as in JAX. The projection's model is torchrec's in the port
+    alone, so its steps are held to the plain reference instead."""
+    steps = _record_fused_steps(monkeypatch)
     j, t = _both(PARITY + extra)
-    _assert_parity(j, t)
+    if "projection" in extra:
+        _assert_projection_against_reference(j, t, steps[:4])
+    else:
+        _assert_parity(j, t)
     _, out = _run(PARITY + extra)
     named = re.findall(r"^embedding update: (\w+)", out, re.M)
     assert named == ([] if path is None else [path])
+
+
+def _record_fused_steps(monkeypatch) -> list:
+    """Each step of the fused steps v2_main builds: its batch, learning
+    rate, loss and probabilities, and the parameters before the first."""
+    steps = []
+    make = tmain.make_fused_train_step
+
+    def recording(*args, **kw):
+        step = make(*args, **kw)
+
+        def run(params, opt, b, lr):
+            before = None if steps else tree_map(torch.clone, params)
+            out = step(params, opt, b, lr)
+            steps.append({"params": before, "batch": b, "lr": lr,
+                          "loss": float(out[2]), "probs": out[3].clone()})
+            return out
+        return run
+
+    monkeypatch.setattr(tmain, "make_fused_train_step", recording)
+    return steps
+
+
+def _assert_projection_against_reference(j, t, steps):
+    """The JAX trainer's sample counts and LR sequence (its model differs);
+    the port's steps replayed by the plain reference from the port's
+    parameters before the first: each step's loss within 5 %, the first
+    step's probabilities within 3e-3. The port's towers and branches are
+    bf16 and the reference's fp32: each layer's rounding to 8 bits moves
+    the first probabilities by 5.3e-4 and the first loss by 1.3e-4, and
+    Adagrad's first steps (lr times each gradient's sign) carry it to 2.1 %
+    by the fourth loss. The reference in fp8 reads 8.8e-3 and 9.4 %, so
+    it fails both (checked below)."""
+    assert t["counts"] == j["counts"] and t["lr"] == j["lr"]
+    assert t["stop"] == j["stop"]
+    assert len(steps) == 4 and len({float(s["lr"]) for s in steps}) == 1
+    hots, sizes, batch = (3, 1, 5), (64, 32, 48), 64
+    ids = [torch.split(s["batch"].idx.long(), [batch * h for h in hots])
+           for s in steps]
+    ids = [[i.reshape(batch, h) for i, h in zip(step, hots)] for step in ids]
+    params = steps[0]["params"]
+    offs = np.cumsum((0,) + sizes[:-1])
+    tables0, local = [], [[] for _ in steps]
+    for tab, o in enumerate(offs):
+        rows, pos = PROJ_REF.touched([step[tab] for step in ids])
+        tables0.append(params["emb"]["stacked"][rows + int(o)])
+        for k, p in enumerate(pos):
+            local[k].append(p)
+    dense = {k: v for k, v in params.items() if k != "emb"}
+    eps = tmain.build_parser().parse_args([]).eps
+
+    def reference(quant):
+        return PROJ_REF.train(
+            tables0, local, dense, [s["batch"].dense for s in steps],
+            [s["batch"].labels.reshape(batch, 1) for s in steps],
+            float(steps[0]["lr"]), eps, quant)
+
+    ref, fp8 = reference("fp32"), reference("fp8")
+    loss = torch.tensor([s["loss"] for s in steps])
+    probs = steps[0]["probs"].reshape(batch, 1)
+    torch.testing.assert_close(loss, torch.tensor(ref["loss"]), rtol=0.05,
+                               atol=0)
+    torch.testing.assert_close(probs, ref["probs"], rtol=0, atol=3e-3)
+    assert not torch.allclose(torch.tensor(fp8["loss"]),
+                              torch.tensor(ref["loss"]), rtol=0.05, atol=0)
+    assert (fp8["probs"] - ref["probs"]).abs().max() > 3e-3
 
 
 def test_auto_on_huge_tables_takes_the_fused_path(jax_init):
